@@ -1,0 +1,250 @@
+"""Batched on-device self-play driver (port of selfplay.py:68-403).
+
+G games advance in lockstep on one device: observation stacking, the fused
+MCTS search, temperature action sampling, env step and auto-reset, for
+`selfplay_chunk_moves` moves per `play` call (the JAX package's `scan` over
+moves is a Python loop here). The host cuts the emitted per-move records
+into complete `GameHistory` episodes at done boundaries.
+
+Evaluation is folded in as greedy lanes: lanes [0, greedy_lanes) play at
+temperature 0 inside the same batch and their episodes come back in
+stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
+
+Not ported yet: the mesh/dp sharding of lanes (ROADMAP module item 19), the
+staged search for networks the fused kernel does not take (item 6), Gumbel
+search (item 16) and BN folding for ResNets (item 12).
+"""
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from muzero_general_tpu_torch.device import resolve_device
+from muzero_general_tpu_torch.envs.core import where_state
+from muzero_general_tpu_torch.ops import mcts as mcts_ops
+from muzero_general_tpu_torch.ops import mcts_fused
+from muzero_general_tpu_torch.ops.stacking import (
+    push_history,
+    reset_history,
+    stack_observations,
+)
+from muzero_general_tpu_torch.replay import GameHistory
+
+
+class SelfPlayCarry(NamedTuple):
+    env_state: object  # batched env state [G, ...]
+    obs_hist: torch.Tensor  # [G, n+1, C, H, W]
+    act_hist: torch.Tensor  # [G, n+1] int32
+    move_count: torch.Tensor  # [G] int32 moves played in current episode
+
+
+class MoveRecord(NamedTuple):
+    """Per-move emission, leading dims [K, G]."""
+
+    observation: torch.Tensor  # [K, G, C, H, W] obs the move was taken from
+    action: torch.Tensor  # [K, G]
+    reward: torch.Tensor  # [K, G]
+    done: torch.Tensor  # [K, G] bool — episode ended on this move
+    to_play: torch.Tensor  # [K, G] player at the observation
+    to_play_next: torch.Tensor  # [K, G] player at the post-move state
+    child_visits: torch.Tensor  # [K, G, A]
+    root_value: torch.Tensor  # [K, G]
+    pred_value: torch.Tensor  # [K, G] network value at root
+    max_tree_depth: torch.Tensor  # [K, G]
+
+
+class SelfPlayDriver:
+    def __init__(self, env, network, config, num_games: Optional[int] = None,
+                 seed: Optional[int] = None, greedy_lanes: int = 0, device=None):
+        self.device = resolve_device(device)
+        if env.device != self.device:
+            raise ValueError(f"env is on {env.device}, driver on {self.device}")
+        if config.use_gumbel_mcts:
+            raise NotImplementedError(
+                "Gumbel search is not ported yet (ROADMAP module item 16)"
+            )
+        if config.network != "fullyconnected":
+            raise NotImplementedError(
+                "self-play with a ResNet is not ported yet (ROADMAP module "
+                "items 6 and 12, kernels 2 and 3)"
+            )
+        # The fused search is the port's only search: "auto" and True run it
+        # (on CPU tensors through its plain version).
+        if config.use_fused_search is False:
+            raise NotImplementedError(
+                "the staged search (ops/mcts.py run_mcts) is not ported yet "
+                "(ROADMAP module item 6)"
+            )
+        self.env = env
+        self.network = network
+        self.config = config
+        self.G = num_games or config.parallel_games
+        self.greedy_lanes = greedy_lanes
+        self.fused_spec = mcts_fused.FusedSpec.from_config(config)
+        self.A = env.num_actions
+        self._n = config.stacked_observations
+        self._obs_shape = tuple(env.observation_shape)
+        seed = config.seed if seed is None else seed
+        # Device draws (env resets, noise, action sampling) and the host draw
+        # of each search's tie-jitter key, which needs no device sync.
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._seed_generator = torch.Generator().manual_seed(seed)
+        self._carry = None
+        # Per-lane lists of record slabs ([T, ...] arrays) awaiting a done cut
+        self._pending = [[] for _ in range(self.G)]
+        # Running reward of the greedy eval lane's in-progress episode
+        self._eval_partial = 0.0
+
+    # ------------------------------------------------------------------
+    def reset(self, start=None):
+        """Start fresh episodes in every lane (`start`: optional explicit env
+        start values, as env.reset takes them)."""
+        G, n = self.G, self._n
+        states = self.env.reset(G, self.generator, start)
+        obs_hist = torch.zeros((G, n + 1) + self._obs_shape, device=self.device)
+        obs_hist[:, 0] = self.env.observation(states)
+        act_hist = torch.zeros((G, n + 1), dtype=torch.int32, device=self.device)
+        move_count = torch.zeros((G,), dtype=torch.int32, device=self.device)
+        self._carry = SelfPlayCarry(states, obs_hist, act_hist, move_count)
+        self._pending = [[] for _ in range(self.G)]
+
+    def _one_move(self, carry, temperature, add_noise, weights):
+        env, config = self.env, self.config
+        stacked = stack_observations(carry.obs_hist, carry.act_hist, self.A)
+        legal = env.legal_actions_mask(carry.env_state)
+        to_play = env.to_play(carry.env_state)
+        seed = int(torch.randint(0, 2**31 - 1, (1,),
+                                 generator=self._seed_generator))
+        out = mcts_fused.run_mcts_fused(
+            self.network, stacked, legal, to_play, self.generator,
+            self.fused_spec, add_exploration_noise=add_noise, weights=weights,
+            seed=seed,
+        )
+        policy_target = mcts_ops.visit_policy(out.root_visit_counts)
+        # Per-lane temperature; drops to 0 after temperature_threshold moves
+        # (reference self_play.py:151-157).
+        action = mcts_ops.select_action(
+            self.generator, out.root_visit_counts, legal, temperature
+        )
+        threshold = config.temperature_threshold
+        if threshold:
+            a_cold = mcts_ops.select_action(
+                self.generator, out.root_visit_counts, legal, 0.0
+            )
+            action = torch.where(carry.move_count < threshold, action, a_cold)
+
+        states2, reward, done = env.step(carry.env_state, action, self.generator)
+        # Enforce max_moves so host episode cuts and env resets stay in
+        # lockstep (reference self_play.py:129-131).
+        done = done | (carry.move_count + 1 >= config.max_moves)
+        record = MoveRecord(
+            observation=carry.obs_hist[:, 0],
+            action=action.to(torch.int32),
+            reward=reward,
+            done=done,
+            to_play=to_play,
+            to_play_next=env.to_play(states2),
+            child_visits=policy_target,
+            root_value=out.root_value,
+            pred_value=out.root_predicted_value,
+            max_tree_depth=out.max_tree_depth,
+        )
+
+        # Push history, then auto-reset finished lanes.
+        obs_hist, act_hist = push_history(
+            carry.obs_hist, carry.act_hist, env.observation(states2), action
+        )
+        fresh = env.reset(self.G, self.generator)
+        states3 = where_state(done, fresh, states2)
+        obs_hist, act_hist = reset_history(
+            obs_hist, act_hist, env.observation(states3), done
+        )
+        move_count = torch.where(done, 0, carry.move_count + 1).to(torch.int32)
+        return SelfPlayCarry(states3, obs_hist, act_hist, move_count), record
+
+    @torch.no_grad()
+    def play_chunk(self, temperature, num_moves: int, add_noise: bool = True):
+        """Advance every lane `num_moves` moves; returns the MoveRecord
+        ([K, G] tensors on the device). `temperature`: float or [G]."""
+        if self._carry is None:
+            self.reset()
+        temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                      device=self.device)
+        # The networks are packed once per chunk, like the JAX package's
+        # per-chunk weight fold.
+        weights = mcts_fused.fused_weights(self.network, self.config.encoding_size)
+        records = []
+        carry = self._carry
+        for _ in range(num_moves):
+            carry, record = self._one_move(carry, temperature, add_noise, weights)
+            records.append(record)
+        self._carry = carry
+        return MoveRecord(*(torch.stack(field) for field in zip(*records)))
+
+    def play(self, temperature: float, num_moves: Optional[int] = None,
+             add_noise: bool = True):
+        """Advance all G games `num_moves` moves; return completed episodes.
+
+        Returns (list[GameHistory], stats dict). Episodes of the greedy eval
+        lanes (lane < greedy_lanes, played at temperature 0) are NOT in the
+        returned list — they arrive in stats["eval_games"].
+        """
+        K = num_moves or self.config.selfplay_chunk_moves
+        temp_vec = np.full((self.G,), temperature, np.float32)
+        temp_vec[: self.greedy_lanes] = 0.0
+        rec = self.play_chunk(torch.from_numpy(temp_vec), K, add_noise)
+        rec = MoveRecord(*(field.cpu().numpy() for field in rec))
+
+        completed = []
+        eval_games = []
+        stats = {
+            "env_steps": K * self.G,
+            "max_tree_depth": int(rec.max_tree_depth.max()),
+            "pred_values": rec.pred_value,
+            "eval_games": eval_games,
+        }
+        if self.greedy_lanes:
+            done0 = np.flatnonzero(rec.done[:, 0])
+            if done0.size:
+                self._eval_partial = float(rec.reward[done0[-1] + 1 :, 0].sum())
+            else:
+                self._eval_partial += float(rec.reward[:, 0].sum())
+            stats["eval_partial_reward"] = self._eval_partial
+        for g in range(self.G):
+            sink = eval_games if g < self.greedy_lanes else completed
+            done_ks = np.flatnonzero(rec.done[:, g])
+            start = 0
+            for k in done_ks:
+                self._pending[g].append(self._slab(rec, g, start, k + 1))
+                sink.append(self._finish(g, rec.to_play_next[k, g]))
+                start = k + 1
+            if start < K:
+                self._pending[g].append(self._slab(rec, g, start, K))
+        return completed, stats
+
+    @staticmethod
+    def _slab(rec, g, a, b):
+        return (
+            rec.observation[a:b, g],
+            rec.action[a:b, g],
+            rec.reward[a:b, g],
+            rec.to_play[a:b, g],
+            rec.child_visits[a:b, g],
+            rec.root_value[a:b, g],
+        )
+
+    def _finish(self, g, final_to_play) -> GameHistory:
+        obs, act, rew, tp, cv, rv = (
+            np.concatenate(parts) for parts in zip(*self._pending[g])
+        )
+        gh = GameHistory(
+            observations=obs.astype(np.float32),
+            actions=np.concatenate([[0], act]).astype(np.int32),
+            rewards=np.concatenate([[0.0], rew]).astype(np.float32),
+            to_play=np.concatenate([tp, [final_to_play]]).astype(np.int32),
+            child_visits=cv.astype(np.float32),
+            root_values=rv.astype(np.float32),
+        )
+        self._pending[g] = []
+        return gh

@@ -34,6 +34,9 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: slow end-to-end tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test without one"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
