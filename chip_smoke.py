@@ -5,22 +5,40 @@
 
 In order, it:
 1. prints the card's name and power limit;
-2. builds the fused-search kernel (csrc/mcts_fused.cu) from the checkout with
-   nvcc and prints the build time and ptxas' register/shared-memory report;
-3. holds the kernel against its plain PyTorch version (search_plain) on the
-   card, tie jitter 0, in three cases: cartpole with the pretrained weights
-   and Dirichlet noise, a 2-player search with the same net, and a 64-wide
-   lunarlander-shaped net (A=4, E=10) with random weights. Visit counts and
-   depth must be equal, root values within 1e-5;
-4. runs the main path: SelfPlayDriver on cartpole at 4,096 lanes x 50
-   simulations, chunks of 8 moves, pretrained weights, tie jitter 1e-5; times
-   3 chunks and checks that the kernel was launched once per move played.
-   Then, at the 4,096 mid-episode roots it reached and with the same tie
-   jitter (the same Philox stream on both sides), it holds the kernel against
-   search_plain as in 3 and times both;
-5. plays 64 greedy lanes (temperature 0, no noise) for 500 moves and fails
-   if the mean return of the completed episodes is below 100;
-6. prints one {"kernels": [...]} JSON line, then ends with
+2. builds every kernel (csrc/mcts_fused.cu and csrc/mcts_kernels.cu) from
+   the checkout, one nvcc each, started together, and prints the build
+   times and ptxas' register/shared-memory report;
+3. the cartpole path (FC net, the fused-search kernel):
+   a. holds the kernel against its plain PyTorch version (search_plain), tie
+      jitter 0, in three cases: cartpole with the pretrained weights and
+      Dirichlet noise, a 2-player search with the same net, and a 64-wide
+      lunarlander-shaped net (A=4, E=10). Visits and depth must be equal,
+      root values within 1e-5;
+   b. runs SelfPlayDriver on cartpole at 4,096 lanes x 50 simulations,
+      chunks of 8 moves, pretrained weights, tie jitter 1e-5; times 3 chunks
+      and checks that the kernel was launched once per move. At the 4,096
+      roots it reached, with the same tie jitter, it holds the kernel against
+      search_plain as in (a) and times both;
+   c. plays 64 greedy lanes for 500 moves: mean return >= 100;
+4. the connect4 path (3 x 64 ResNet, the staged search with the planar
+   descent and backprop kernels):
+   a. each kernel against its plain version (descend_planar_plain,
+      backprop_plain) on a real tree snapshot at 256 lanes taken after 100
+      of 200 simulations, tie jitter 1e-5: descend outputs, visits, value
+      sums and min/max must be equal;
+   b. runs SelfPlayDriver on connect4 with the pretrained weights at 256
+      lanes x 200 simulations, chunks of 8 moves; times 3 chunks after a
+      warm-up, the move loop inside them apart from the host's episode
+      cuts; checks that each kernel was launched 200 times per move; times
+      the network's and the kernels' device work by CUDA graph replay and
+      profiles one move for the card's busy share;
+   c. at the 256 mid-game roots the driver reached, runs the whole search
+      on the kernel route and on the kernels' plain versions, same root
+      noise and jitter seed, cuDNN deterministic: visits and depth must be
+      equal, root values within 1e-5;
+   d. plays 64 games of pretrained MuZero (first to move, temperature 0
+      with root noise) against the env's expert: MuZero must win >= 48;
+5. prints one {"kernels": [...]} JSON line, then ends with
    {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
@@ -36,14 +54,15 @@ import time
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
-CHECKPOINT = REPO / "pretrained" / "cartpole" / "model.checkpoint"
-SOURCE = "muzero_general_tpu_torch/csrc/mcts_fused.cu"
-REPLACES = "muzero_general_tpu/ops/mcts_fused.py:235"
+CART_CHECKPOINT = REPO / "pretrained" / "cartpole" / "model.checkpoint"
+C4_CHECKPOINT = REPO / "pretrained" / "connect4" / "model.checkpoint"
+CSRC = "muzero_general_tpu_torch/csrc/"
 # One H100 SXM at its 700 W limit (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 VALUE_TOL = 1e-5
+QUALITY_GAMES, QUALITY_WINS = 64, 48
 
 
 def log(msg):
@@ -68,10 +87,56 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean device time of fn() with the host out of the way: reps calls
+    captured in one CUDA graph, replayed (after a warm replay) between CUDA
+    events. For kernels shorter than their own launch from Python."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, 1) / reps
+
+
+def bound_ms(flops, nbytes):
+    t_ops = flops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def load_pretrained(net, path):
+    from muzero_general_tpu_torch.checkpoint import load_checkpoint
+    from muzero_general_tpu_torch.models import params_from_jax
+
+    net.load_state_dict(params_from_jax(load_checkpoint(path)["weights"]))
+    return net
+
+
+def build_kernels():
+    from muzero_general_tpu_torch.native import build
+
+    t0 = time.perf_counter()
+    infos = build.build_all()
+    log(f"[build] {len(infos)} kernels built together in {time.perf_counter() - t0:.2f} s")
+    for name, info in infos.items():
+        log(f"[build] {CSRC}{name}.cu -> {info['path'].name} in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "ptxas" in line or "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
+        build.load_library(name)
+
+
+# ---------------------------------------------------------------------------
+# The cartpole path: the fused-search kernel
+# ---------------------------------------------------------------------------
+
+
 def search_work(B, A, E, num_sims, weights):
-    """(FLOPs, bytes) of one search: the MLP arithmetic the simulations need
-    (descent and backprop arithmetic left out: data-dependent and smaller),
-    and each input read and each output written once."""
+    """(FLOPs, bytes) of one fused search: the MLP arithmetic the simulations
+    need (descent and backprop arithmetic left out: data-dependent and
+    smaller), and each input read and each output written once."""
     flops_per_sim = 0
     for layer, (fan_in, fan_out) in enumerate(weights.dims):
         if layer == 0:  # the one-hot part of the first layer is one row add
@@ -84,24 +149,10 @@ def search_work(B, A, E, num_sims, weights):
     return flops, nbytes
 
 
-def bound_ms(flops, nbytes):
-    t_ops = flops / PEAK_F32_FLOPS
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def load_pretrained(net):
-    from muzero_general_tpu_torch.checkpoint import load_checkpoint
-    from muzero_general_tpu_torch.models import params_from_jax
-
-    net.load_state_dict(params_from_jax(load_checkpoint(CHECKPOINT)["weights"]))
-    return net
-
-
 def check_equal(name, got, want, legal, num_sims):
-    """Fail unless the kernel's (visits, value, depth) equal search_plain's:
-    visits and depth exactly, values within VALUE_TOL; every root's visits
-    sum to num_sims and illegal actions get none. Returns max |dvalue|."""
+    """Fail unless (visits, value, depth) equal the plain version's: visits
+    and depth exactly, values within VALUE_TOL; every root's visits sum to
+    num_sims and illegal actions get none. Returns max |dvalue|."""
     torch.cuda.synchronize()
     visits, value, depth = (t.cpu() for t in got)
     p_visits, p_value, p_depth = (t.cpu() for t in want)
@@ -111,7 +162,7 @@ def check_equal(name, got, want, legal, num_sims):
     for what, bad in (("visits", bad_v), ("depth", bad_d), ("value", err > VALUE_TOL)):
         if bool(bad.any()):
             lane = int(bad.nonzero()[0])
-            fail(f"{name}: kernel and search_plain differ in {what} at lane {lane}: "
+            fail(f"{name}: kernel and plain version differ in {what} at lane {lane}: "
                  f"visits {visits[lane].tolist()} vs {p_visits[lane].tolist()}, "
                  f"depth {int(depth[lane])} vs {int(p_depth[lane])}, "
                  f"value {float(value[lane])!r} vs {float(p_value[lane])!r}")
@@ -128,7 +179,7 @@ def check_equal(name, got, want, legal, num_sims):
 
 
 def compare_case(name, cfg, net, B, num_players, noise, random_legal, seed):
-    """Kernel vs search_plain on the same card tensors; returns max |dvalue|."""
+    """Fused kernel vs search_plain on the same card tensors; max |dvalue|."""
     from muzero_general_tpu_torch.ops import mcts_fused
 
     dev = torch.device("cuda")
@@ -155,41 +206,18 @@ def compare_case(name, cfg, net, B, num_players, noise, random_legal, seed):
                        cfg.num_simulations)
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+def cartpole_path():
+    """Phases 3a-3c; returns the fused kernel's entry of the kernels line."""
     from muzero_general_tpu_torch.config import MuZeroConfig as BaseConfig
     from muzero_general_tpu_torch.games.cartpole import MuZeroConfig, make_env
     from muzero_general_tpu_torch.models import MuZeroNetwork
-    from muzero_general_tpu_torch.native import build
     from muzero_general_tpu_torch.ops import mcts_fused
+    from muzero_general_tpu_torch.ops.stacking import stack_observations
     from muzero_general_tpu_torch.selfplay import SelfPlayDriver
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-
-    # ---- 1. the card ----------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    log(smi)  # the card's name and power limit, as nvidia-smi gives them
-    log(f"[device] torch: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    # ---- 2. build -------------------------------------------------------
-    info = build.build("mcts_fused")
-    log(f"[build] {SOURCE} -> {info['path'].name} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "ptxas" in line or "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-    build.load_library("mcts_fused")
-
-    # ---- 3. kernel vs plain ---------------------------------------------
+    # ---- 3a. kernel vs plain --------------------------------------------
     cart = MuZeroConfig()
-    cart_net = load_pretrained(MuZeroNetwork(cart))
+    cart_net = load_pretrained(MuZeroNetwork(cart), CART_CHECKPOINT)
     two = MuZeroConfig()
     two.players = [0, 1]
     lander = BaseConfig()
@@ -207,13 +235,15 @@ def main():
         compare_case("lunarlander-shaped 64-wide", lander, lander_net, 256, 1, True, True, 2),
     )
 
-    # ---- 4. the main path -----------------------------------------------
+    # ---- 3b. the main path ----------------------------------------------
     cfg = MuZeroConfig()
     cfg.num_simulations = 50
     cfg.parallel_games = 4096
     cfg.selfplay_chunk_moves = 8
-    net = load_pretrained(MuZeroNetwork(cfg))
+    net = load_pretrained(MuZeroNetwork(cfg), CART_CHECKPOINT)
     driver = SelfPlayDriver(make_env(), net, cfg, seed=0)
+    if not driver.use_fused:
+        fail("cartpole: the driver did not route to the fused search")
     K, reps = cfg.selfplay_chunk_moves, 3
     mcts_fused.search.launches = 0
     driver.play(temperature=1.0)  # warm-up
@@ -226,9 +256,9 @@ def main():
     launches = mcts_fused.search.launches
     moves = (reps + 1) * K
     if launches != moves:
-        fail(f"main path: {launches} kernel launches for {moves} moves")
+        fail(f"cartpole main path: {launches} kernel launches for {moves} moves")
     steps_per_s = stats["env_steps"] / chunk_s
-    log(f"[main] SelfPlayDriver.play: {cfg.parallel_games} lanes x "
+    log(f"[cartpole] SelfPlayDriver.play: {cfg.parallel_games} lanes x "
         f"{cfg.num_simulations} sims, {K} moves/chunk: {chunk_s * 1e3:.2f} ms/chunk, "
         f"{steps_per_s:.1f} env-steps/s, kernel launches {launches} = moves {moves}, "
         f"max tree depth {stats['max_tree_depth']}")
@@ -243,8 +273,6 @@ def main():
     # The search at the main path's state and shapes (4,096 mid-episode roots,
     # the driver's tie jitter): kernel vs search_plain, then timings.
     carry = driver._carry
-    from muzero_general_tpu_torch.ops.stacking import stack_observations
-
     with torch.no_grad():
         stacked = stack_observations(carry.obs_hist, carry.act_hist, driver.A)
         legal = driver.env.legal_actions_mask(carry.env_state)
@@ -257,7 +285,7 @@ def main():
         got = mcts_fused.search(*args, **kw)
         want = mcts_fused.search_plain(*args, **kw)
         main_err = check_equal(
-            f"main path (tie jitter {kw['tie_jitter']!r}, seed {kw['seed']})",
+            f"cartpole main path (tie jitter {kw['tie_jitter']!r}, seed {kw['seed']})",
             got, want, legal, cfg.num_simulations)
         kernel_ms = cuda_ms(lambda: mcts_fused.search(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: mcts_fused.search_plain(*args, **kw), 1)
@@ -265,47 +293,437 @@ def main():
     flops, nbytes = search_work(cfg.parallel_games, driver.A, cfg.encoding_size,
                                 cfg.num_simulations, weights)
     b_ms, b_by = bound_ms(flops, nbytes)
-    log(f"[main] kernel {kernel_ms:.4f} ms/launch (CUDA events, 20 launches), "
+    log(f"[cartpole] kernel {kernel_ms:.4f} ms/launch (CUDA events, 20 launches), "
         f"{100 * kernel_ms / move_ms:.1f}% of {move_ms:.4f} ms/move; "
         f"search_plain {plain_ms:.2f} ms/move; bound {b_ms:.6f} ms ({b_by}: "
         f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB)")
-    log(f"[main] per move: {move_ms:.4f} ms = kernel {kernel_ms:.4f} + rest of the "
+    log(f"[cartpole] per move: {move_ms:.4f} ms = kernel {kernel_ms:.4f} + rest of the "
         f"move loop {loop_s * 1e3 / K - kernel_ms:.4f} (play_chunk {loop_s * 1e3 / K:.4f}) "
         f"+ host episode cuts {(chunk_s - loop_s) * 1e3 / K:.4f}")
 
-    # ---- 5. greedy check ------------------------------------------------
+    # ---- 3c. greedy check ------------------------------------------------
     gcfg = MuZeroConfig()
     gcfg.parallel_games = 64
-    gdriver = SelfPlayDriver(make_env(), load_pretrained(MuZeroNetwork(gcfg)), gcfg, seed=1)
+    gdriver = SelfPlayDriver(make_env(), load_pretrained(MuZeroNetwork(gcfg), CART_CHECKPOINT),
+                             gcfg, seed=1)
     completed, _ = gdriver.play(temperature=0.0, num_moves=500, add_noise=False)
     returns = [float(gh.rewards.sum()) for gh in completed]
     if not returns:
-        fail("greedy check: no episode completed in 500 moves")
+        fail("cartpole greedy check: no episode completed in 500 moves")
     mean_return = sum(returns) / len(returns)
-    log(f"[greedy] 64 lanes, 500 moves, temperature 0: {len(returns)} episodes, "
+    log(f"[cartpole] greedy: 64 lanes, 500 moves, temperature 0: {len(returns)} episodes, "
         f"mean return {mean_return:.2f} (min {min(returns):.0f}, max {max(returns):.0f})")
     if mean_return < 100:
-        fail(f"greedy check: mean return {mean_return:.2f} < 100")
-
-    # ---- 6. results -----------------------------------------------------
-    kernels = [{
+        fail(f"cartpole greedy check: mean return {mean_return:.2f} < 100")
+    return {
         "name": "mcts_fused_search",
         "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
+        "source": CSRC + "mcts_fused.cu",
+        "replaces": "muzero_general_tpu/ops/mcts_fused.py:235",
         "launches": launches,
         "visits_exact": True,  # check_equal failed the run otherwise
         "max_abs_err": main_err,  # the main path's roots, tie jitter on
         "cases_max_abs_err": cases_err,  # the three cases, tie jitter 0
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": None,
-    }]
+        "library_ms": None,  # no single PyTorch call runs an MCTS
+    }
+
+
+# ---------------------------------------------------------------------------
+# The connect4 path: the ResNet through the staged search's two kernels
+# ---------------------------------------------------------------------------
+
+
+def descend_work(leaf_depth, depth_bound, B, A, D):
+    """(FLOPs, bytes) one descent needs for this data: per level a lane
+    descends, its node's A edges of four stats and the chosen child's index,
+    about 10 operations per edge plus a log, a sqrt and a few for the node;
+    the root's legal row and the min/max once, and every output once."""
+    cut = torch.where(leaf_depth < 0, depth_bound, leaf_depth)
+    levels = int(cut.sum())
+    flops = levels * (10 * A + 8)
+    nbytes = levels * (4 * 4 * A + 4) + 4 * (B * A + 2 * B + 1) + 4 * (3 * B + 2 * B * D)
+    return flops, nbytes
+
+
+def backprop_work(leaf_depth, B):
+    """(FLOPs, bytes) one backprop needs for this data: per node on a path
+    its edge's path entries, visit and value sum read and written and
+    reward read, about 10 operations; per lane its leaf and root scalars."""
+    levels = int((leaf_depth + 1).clamp(min=0).sum())
+    flops = levels * 10
+    nbytes = levels * (8 + 16 + 4) + B * 4 * (2 + 1 + 2 * 4)
+    return flops, nbytes
+
+
+def random_positions(env, B, plies, gen):
+    """B connect4 positions `plies` random legal moves into a game."""
+    state = env.reset(B, gen)
+    for _ in range(plies):
+        state, _, _ = env.step(state, env.random_legal_action(state, gen), gen)
+    return state
+
+
+def snapshot_checks(cfg, folded, env):
+    """Phase 4a: each kernel vs its plain version on a real tree after 100 of
+    200 simulations at 256 lanes. Returns per-kernel numbers."""
+    from muzero_general_tpu_torch.ops import mcts as mcts_ops
+    from muzero_general_tpu_torch.ops import mcts_kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, N, A = cfg.parallel_games, cfg.num_simulations + 1, len(cfg.action_space)
+    D = cfg.num_simulations + 1
+    spec = mcts_ops.SearchSpec.from_config(cfg, B, dev)
+    if not spec.use_kernels:
+        fail("connect4 at 256 lanes did not take the kernel route")
+    state = random_positions(env, B, 6, gen)
+    obs, legal, to_play = env.observation(state), env.legal_actions_mask(state), env.to_play(state)
+    sim, seed = cfg.num_simulations // 2, 12345
+    with torch.no_grad():
+        out = mcts_ops.run_mcts(folded.initial_inference, folded.recurrent_inference, obs,
+                                legal, to_play, gen, spec, seed=seed, num_steps=sim)
+    tree = mcts_ops._to_planar(out.tree)
+    depth_bound = (out.max_tree_depth.max() + 1).to(torch.int32)
+    legal_i32 = legal.to(torch.int32).contiguous()
+    dargs = (seed, sim, depth_bound, tree.children_index, tree.children_prior,
+             tree.children_visit, tree.children_vsum, tree.children_reward, legal_i32,
+             tree.min_value, tree.max_value)
+    dkw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+               pb_c_init=spec.pb_c_init, discount=spec.discount,
+               max_depth=spec.max_depth, tie_jitter=spec.tie_jitter)
+    got = mcts_kernels.descend_planar(*dargs, **dkw)
+    want = mcts_kernels.descend_planar_plain(*dargs, **dkw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("parent", "action", "leaf_depth", "path_nodes", "path_actions"),
+                          got, want):
+        if not torch.equal(g, w):
+            lane = int((g != w).reshape(B, -1).any(1).nonzero()[0])
+            fail(f"descend_planar: kernel and plain differ in {name} at lane {lane}: "
+                 f"{g[lane].tolist()} vs {w[lane].tolist()}")
+    leaf_depth = got[2]
+    if bool((leaf_depth < 1).any()):
+        fail("descend_planar: a lane was cut by the depth bound")
+    log(f"[connect4] descend_planar vs plain at a {B}-lane tree after {sim} sims, "
+        f"tie jitter {spec.tie_jitter!r}: all five outputs equal; leaf depths "
+        f"{int(leaf_depth.min())}-{int(leaf_depth.max())}, depth bound {int(depth_bound)}")
+
+    leaf_value = torch.randn((B,), generator=gen, device=dev) * 3
+    slabs = ("children_visit", "children_vsum", "root_visit", "root_vsum", "min_value",
+             "max_value")
+
+    def bp_args(t):
+        return (got[3], got[4], leaf_depth, leaf_value, t.children_visit, t.children_vsum,
+                t.children_reward, t.root_visit, t.root_vsum, t.root_reward, t.min_value,
+                t.max_value)
+
+    bkw = dict(num_players=spec.num_players, discount=spec.discount, planar=True)
+    k_tree = mcts_ops.Tree(*(x.clone() for x in tree))
+    p_tree = mcts_ops.Tree(*(x.clone() for x in tree))
+    k_out = mcts_kernels.backprop(*bp_args(k_tree), **bkw)
+    p_out = mcts_kernels.backprop_plain(*bp_args(p_tree), **bkw)
+    torch.cuda.synchronize()
+    bp_err = 0.0
+    for name, g, w in zip(slabs, k_out, p_out):
+        if not torch.equal(g, w):
+            bp_err = max(bp_err, float((g.double() - w.double()).abs().max()))
+            fail(f"backprop: kernel and plain differ in {name} (max |d| {bp_err!r})")
+    changed = int((k_tree.children_visit != tree.children_visit).sum())
+    if changed != int(leaf_depth.sum()):
+        fail(f"backprop: {changed} edge visits changed, paths hold {int(leaf_depth.sum())}")
+    log(f"[connect4] backprop vs plain on those paths: visits, value sums, root stats "
+        f"and min/max equal; {changed} edges updated")
+
+    # Timings at this snapshot (the main path's shapes): the device time of
+    # a launch (graph replay), and the time of a call from Python (eager
+    # launches back to back, which the host's wrapper cost can set). Backprop
+    # repeats on a working copy: the same paths, so the same walk each time.
+    def descend():
+        return mcts_kernels.descend_planar(*dargs, **dkw)
+
+    def backprop():
+        return mcts_kernels.backprop(*bp_args(w_tree), **bkw)
+
+    w_tree = mcts_ops.Tree(*(x.clone() for x in tree))
+    with torch.no_grad():
+        d_call = cuda_ms(descend, 50)
+        d_ms = graph_ms(descend, 50)
+        mcts_kernels.descend_planar_plain(*dargs, **dkw)
+        d_plain = cuda_ms(lambda: mcts_kernels.descend_planar_plain(*dargs, **dkw), 1)
+        b_call = cuda_ms(backprop, 50)
+        b_ms = graph_ms(backprop, 50)
+        b_plain = cuda_ms(lambda: mcts_kernels.backprop_plain(*bp_args(w_tree), **bkw), 1)
+    d_bound, d_by = bound_ms(*descend_work(leaf_depth, int(depth_bound), B, A, D))
+    b_bound, b_by = bound_ms(*backprop_work(leaf_depth, B))
+    for name, ms, call, plain, bnd, by in (("descend_planar", d_ms, d_call, d_plain, d_bound,
+                                            d_by),
+                                           ("backprop", b_ms, b_call, b_plain, b_bound, b_by)):
+        log(f"[connect4] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches), "
+            f"{call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
+            f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    return {
+        "descend_planar": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain, bound_ms=d_bound,
+                               bound_by=d_by, max_abs_err=0.0),
+        "backprop": dict(ms=b_ms, call_ms=b_call, plain_ms=b_plain, bound_ms=b_bound,
+                         bound_by=b_by, max_abs_err=bp_err),
+    }
+
+
+def whole_search_check(driver, folded):
+    """Phase 4c: run_mcts on the kernel route vs the kernels' plain versions
+    at the driver's 256 mid-game roots, same noise and jitter seed."""
+    from muzero_general_tpu_torch.ops import mcts as mcts_ops
+    from muzero_general_tpu_torch.ops.stacking import stack_observations
+
+    carry, spec, env = driver._carry, driver.spec, driver.env
+    B, A = driver.G, driver.A
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    stacked = stack_observations(carry.obs_hist, carry.act_hist, A)
+    legal, to_play = env.legal_actions_mask(carry.env_state), env.to_play(carry.env_state)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        with torch.no_grad():
+            root = folded.initial_inference(stacked)
+            noise = mcts_ops.sample_gamma(spec.dirichlet_alpha, (B, A), gen, stacked.device)
+            outs, secs = [], []
+            for plain in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(mcts_ops.run_mcts(
+                    folded.initial_inference, folded.recurrent_inference, stacked, legal,
+                    to_play, gen, spec, root_outputs=root, root_noise=noise, seed=777,
+                    plain_kernels=plain))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    k, p = outs
+    err = float((k.root_value - p.root_value).abs().max())
+    if not torch.equal(k.root_visit_counts, p.root_visit_counts):
+        fail("whole search: kernel and plain routes differ in root visits")
+    if not torch.equal(k.max_tree_depth, p.max_tree_depth):
+        fail("whole search: kernel and plain routes differ in depth")
+    if not err <= VALUE_TOL:
+        fail(f"whole search: root values differ by {err!r}")
+    visits = k.root_visit_counts
+    if not bool((visits.sum(1) == spec.num_simulations).all()):
+        fail("whole search: root visits do not sum to the simulation count")
+    if bool(visits[~legal].any()):
+        fail("whole search: an illegal root action got visits")
+    log(f"[connect4] whole search at the driver's {B} mid-game roots, {spec.num_simulations} "
+        f"sims, kernels vs their plain versions (jitter seed 777): visits and depth equal, "
+        f"max |d root value| {err!r}, max depth {int(k.max_tree_depth.max())}; "
+        f"{secs[0] * 1e3:.1f} ms vs {secs[1] * 1e3:.1f} ms (host clock)")
+
+
+def profile_move(driver, move_ms):
+    """One move under torch.profiler: the device time of its kernels, the
+    card's busy share of an unprofiled move (`move_ms`, the profiler slows
+    the host) and the largest kernels. Prints "not measured" when the trace
+    holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    temps = torch.ones((driver.G,))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        driver.play_chunk(temps, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue  # host ops; their kernels are rows of their own
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        rows.append((dev_us, evt.key, evt.count))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms <= 0:
+        log(f"[profile] one move: {wall_ms:.2f} ms wall (profiled); device time: not "
+            "measured (the trace holds none)")
+        return
+    share = 100 * busy_ms / move_ms
+    log(f"[profile] one move: {busy_ms:.2f} ms of device kernels ({len(rows)} kernel names, "
+        f"{sum(r[2] for r in rows)} launches); {wall_ms:.2f} ms wall profiled; of an "
+        f"unprofiled move ({move_ms:.2f} ms) the card is busy {share:.1f}%, idle "
+        f"{100 - share:.1f}%")
+    for dev_us, key, count in sorted(rows, reverse=True)[:10]:
+        log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def quality_gate(cfg, folded, env):
+    """Phase 4d: 64 games of MuZero (player 0, moves first, temperature 0
+    with root noise as evaluate.py) against the env's expert."""
+    from muzero_general_tpu_torch.ops import mcts as mcts_ops
+
+    dev = torch.device("cuda")
+    G = QUALITY_GAMES
+    gen = torch.Generator(device=dev).manual_seed(31)
+    spec = mcts_ops.SearchSpec.from_config(cfg, G, dev)
+    state = env.reset(G, gen)
+    wins = torch.zeros((G,), dtype=torch.bool, device=dev)
+    losses = torch.zeros_like(wins)
+    for _ in range(cfg.max_moves):
+        if bool(state.done.all()):
+            break
+        muzero = env.to_play(state) == 0
+        legal = env.legal_actions_mask(state)
+        with torch.no_grad():
+            out = mcts_ops.run_mcts(folded.initial_inference, folded.recurrent_inference,
+                                    env.observation(state), legal, env.to_play(state), gen,
+                                    spec, add_exploration_noise=True)
+        greedy = torch.argmax(torch.where(legal, out.root_visit_counts, -1), dim=1)
+        action = torch.where(muzero, greedy, env.expert_action(state, gen).long())
+        state, reward, _ = env.step(state, action, gen)
+        wins |= muzero & (reward > 0)
+        losses |= ~muzero & (reward > 0)
+    n_win, n_loss = int(wins.sum()), int(losses.sum())
+    log(f"[connect4] quality: {G} games, pretrained MuZero (first, temperature 0, root "
+        f"noise, {cfg.num_simulations} sims) vs the expert: {n_win} won, {n_loss} lost, "
+        f"{G - n_win - n_loss} drawn")
+    if n_win < QUALITY_WINS:
+        fail(f"quality gate: MuZero won {n_win} of {G} < {QUALITY_WINS}")
+
+
+def connect4_path():
+    """Phases 4a-4d; returns the two kernels' entries of the kernels line."""
+    from muzero_general_tpu_torch.games.connect4 import MuZeroConfig, make_env
+    from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
+    from muzero_general_tpu_torch.ops import mcts_kernels
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+
+    cfg = MuZeroConfig()
+    cfg.parallel_games = 256
+    cfg.selfplay_chunk_moves = 8
+    net = load_pretrained(MuZeroNetwork(cfg), C4_CHECKPOINT)
+    folded = fold_bn(net)
+    env = make_env()
+    kernels = snapshot_checks(cfg, folded, env)
+
+    # ---- 4b. the main path -----------------------------------------------
+    driver = SelfPlayDriver(env, net, cfg, seed=0)
+    if driver.use_fused or not driver.spec.use_kernels or not driver.fold_bn:
+        fail("connect4: the driver did not route to the staged search's kernels")
+    K, reps, S = cfg.selfplay_chunk_moves, 3, cfg.num_simulations
+    # play = the move loop (play_chunk) + the host's episode cuts; the loop
+    # is timed inside the same calls, so the split sees no drift.
+    chunk_times = []
+    play_chunk = driver.play_chunk
+
+    def timed_play_chunk(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = play_chunk(*args, **kwargs)
+        torch.cuda.synchronize()
+        chunk_times.append(time.perf_counter() - t)
+        return out
+
+    driver.play_chunk = timed_play_chunk
+    mcts_kernels.descend_planar.launches = 0
+    mcts_kernels.backprop.launches = 0
+    driver.play(temperature=1.0)  # warm-up
+    chunk_times.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, stats = driver.play(temperature=1.0)
+    torch.cuda.synchronize()
+    chunk_s = (time.perf_counter() - t0) / reps
+    launches = {"descend_planar": mcts_kernels.descend_planar.launches,
+                "backprop": mcts_kernels.backprop.launches}
+    del driver.play_chunk
+    moves = (reps + 1) * K
+    for name, count in launches.items():
+        if count != S * moves:
+            fail(f"connect4 main path: {name} launched {count} times for {moves} moves "
+                 f"x {S} sims")
+    log(f"[connect4] SelfPlayDriver.play: {driver.G} lanes x {S} sims, {K} moves/chunk, "
+        f"pretrained 3x64 ResNet: {chunk_s * 1e3:.2f} ms/chunk, "
+        f"{stats['env_steps'] / chunk_s:.1f} env-steps/s, launches {launches} = "
+        f"{S} x {moves} moves, max tree depth {stats['max_tree_depth']}")
+    loop_ms = sum(chunk_times) * 1e3 / (reps * K)
+    move_ms = chunk_s * 1e3 / K
+
+    # The device work of a move: S recurrent inferences and one initial one
+    # at the driver's batch (device time by graph replay; per call from
+    # Python by CUDA events), and S launches of each tree kernel.
+    with torch.no_grad():
+        obs = driver.env.observation(driver._carry.env_state)
+        hidden = folded.initial_inference(obs)[3]
+        action = torch.zeros((driver.G,), dtype=torch.long, device=hidden.device)
+
+        def recurrent():
+            return folded.recurrent_inference(hidden, action)
+
+        rec_call = cuda_ms(recurrent, 20)
+        rec_ms = graph_ms(recurrent, 20)
+        init_ms = graph_ms(lambda: folded.initial_inference(obs), 5)
+    dev_net = S * rec_ms + init_ms
+    dev_kern = S * (kernels["descend_planar"]["ms"] + kernels["backprop"]["ms"])
+    log(f"[connect4] per move: {move_ms:.3f} ms = move loop {loop_ms:.3f} + host episode "
+        f"cuts {move_ms - loop_ms:.3f}. Device work in the loop: network {dev_net:.3f} "
+        f"({S} x {rec_ms:.4f} recurrent + {init_ms:.4f} initial, graph replay; "
+        f"{rec_call:.4f} ms per recurrent call from Python) + tree kernels {dev_kern:.3f} "
+        f"({S} x (descend {kernels['descend_planar']['ms']:.4f} + backprop "
+        f"{kernels['backprop']['ms']:.4f})); the other {loop_ms - dev_net - dev_kern:.3f} ms "
+        f"is host time the card waits on and small ops")
+    profile_move(driver, loop_ms)
+
+    # ---- 4c, 4d ----------------------------------------------------------
+    whole_search_check(driver, folded)
+    quality_gate(cfg, folded, make_env())
+
+    entries = []
+    for name, replaces in (("descend_planar", "muzero_general_tpu/ops/mcts_pallas.py:217"),
+                           ("backprop", "muzero_general_tpu/ops/mcts_pallas.py:387")):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": CSRC + "mcts_kernels.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "visits_exact": True,  # the checks failed the run otherwise
+            "max_abs_err": kernels[name]["max_abs_err"],
+            "ms": kernels[name]["ms"],
+            "call_ms": kernels[name]["call_ms"],
+            "plain_ms": kernels[name]["plain_ms"],
+            "bound_ms": kernels[name]["bound_ms"],
+            "bound_by": kernels[name]["bound_by"],
+            "library_ms": None,  # no single PyTorch call descends or backs up a tree
+        })
+    return entries
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # ---- 1. the card ----------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] torch: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 2.-4. ----------------------------------------------------------
+    build_kernels()
+    kernels = [cartpole_path()]
+    log(f"[done] cartpole path after {time.perf_counter() - t_start:.1f} s")
+    kernels += connect4_path()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
+    log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

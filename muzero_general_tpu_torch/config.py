@@ -49,7 +49,8 @@ class MuZeroConfig:
         self.network = "fullyconnected"  # "resnet" / "fullyconnected"
         self.support_size = 10
 
-        # Residual network (not ported yet: ROADMAP module item 12)
+        # Residual network (models/resnet.py, float32; downsample "resnet" and
+        # "CNN" raise NotImplementedError: ROADMAP module item 12)
         self.downsample = False
         self.blocks = 1
         self.channels = 2
@@ -111,7 +112,8 @@ class MuZeroConfig:
         # Unused: the port runs on one device (ROADMAP module item 19).
         self.mesh_dp = None
         self.mesh_mp = 1
-        # Unused: the port computes in float32 (bf16 comes with the ResNet).
+        # Used: "float32" only; "bfloat16" raises NotImplementedError in
+        # MuZeroNetwork (ROADMAP module item 12).
         self.compute_dtype = "float32"
         # Unused until reanalyse is ported (ROADMAP module item 10).
         self.reanalyse_interval = 20
@@ -122,22 +124,29 @@ class MuZeroConfig:
         # Unused until the learner is ported (ROADMAP module item 9).
         self.fused_train_steps = 8
         self.batch_prefetch = True
-        # Unused: the staged-search kernels are not ported yet (ROADMAP
-        # kernels 2-3).
+        # Used: the staged search's descend/backprop CUDA kernels
+        # (ops/mcts_kernels.py) where the tree fits the JAX package's planar
+        # kernels; "auto" engages them on a CUDA device, True also on the CPU
+        # (through their plain versions), False runs the plain-op route.
         self.use_pallas_mcts = "auto"
-        # Used: the fused single-kernel search (ops/mcts_fused.py), the
-        # port's only search so far: "auto" and True run it, False raises
-        # until the staged search is ported (ROADMAP module item 6).
+        # Used: the fused single-kernel search (ops/mcts_fused.py) for FC
+        # networks: "auto" and True run it (on CPU tensors through its plain
+        # version), False runs the staged search (ops/mcts.py run_mcts).
         self.use_fused_search = "auto"
         # Accepted, unused: the port's kernel always computes in float32
         # (what "highest" means on the TPU).
         self.fused_net_precision = "highest"
-        # Unused: the stream kernels are not ported yet (ROADMAP kernels 4-5).
+        # Read: where it resolves (as in the JAX package) for a tree the
+        # planar kernels cannot take, SearchSpec.from_config raises
+        # NotImplementedError: the stream kernels are ROADMAP kernels 4-5.
         self.use_stream_mcts = "auto"
-        # Unused: multi-leaf search is not ported yet (ROADMAP item 14).
+        # Read: values above 1 raise NotImplementedError (multi-leaf search,
+        # ROADMAP module item 14).
         self.search_batch_leaves = 1
-        # Unused: ResNet only (ROADMAP module item 12).
+        # Used: self-play folds a ResNet's batch norms into its convs once
+        # per play_chunk (models/network.py fold_bn).
         self.fold_bn_inference = True
+        # Read: True raises NotImplementedError (bf16, ROADMAP item 12).
         self.search_bf16_activations = False
         # Gumbel search is not ported yet (ROADMAP module item 16); the
         # driver raises NotImplementedError when it is on.

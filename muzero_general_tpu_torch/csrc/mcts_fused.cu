@@ -36,7 +36,7 @@
 // out. ELU uses expm1f.
 // Tie jitter: a Philox4x32-10 stream keyed by the wrapper's seed, counter
 // (lane, simulation, level, action / 4); search_plain computes the same
-// stream (mcts_fused.py philox4x32_10), so the two match with jitter on.
+// stream (ops/philox.py), so the two match with jitter on.
 
 #include <cuda_runtime.h>
 #include <math.h>

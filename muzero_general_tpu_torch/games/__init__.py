@@ -6,4 +6,6 @@ ported are listed (the rest are ROADMAP module item 13).
 
 AVAILABLE_GAMES = [
     "cartpole",
+    "connect4",
+    "tictactoe",
 ]

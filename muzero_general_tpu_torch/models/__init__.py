@@ -1,5 +1,9 @@
-"""Model layer: the FC MuZero network triplet (ResNet: ROADMAP module item 12)."""
+"""Model layer: the FC and ResNet MuZero network triplets."""
 
-from muzero_general_tpu_torch.models.network import MuZeroNetwork, params_from_jax
+from muzero_general_tpu_torch.models.network import (
+    MuZeroNetwork,
+    fold_bn,
+    params_from_jax,
+)
 
-__all__ = ["MuZeroNetwork", "params_from_jax"]
+__all__ = ["MuZeroNetwork", "fold_bn", "params_from_jax"]

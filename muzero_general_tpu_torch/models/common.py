@@ -1,10 +1,12 @@
-"""Shared model building blocks, FC parts (port of models/common.py).
+"""Shared model building blocks (port of models/common.py).
 
-`nn.Linear`'s default init, U(+-1/sqrt(fan_in)) for weight and bias, is the
-JAX package's `TorchDense` init, so `MLP` keeps it; `reset_parameters` redraws
-it from an explicit generator. Submodules are named `TorchDense_<i>` like the
-flax layers, so a JAX parameter tree maps onto the state dict by name
-(models/network.py `params_from_jax`).
+`nn.Linear`'s and `nn.Conv2d`'s default inits, U(+-1/sqrt(fan_in)) for weight
+and bias, are the JAX package's `TorchDense` and `TorchConv` inits;
+`reset_parameters` redraws them from an explicit generator. Submodules are
+named like the flax layers (`TorchDense_<i>`, `TorchConv_<i>`,
+`BatchNorm_<i>`), so a JAX parameter tree maps onto the state dict by name
+(models/network.py `params_from_jax`). Convolutions are NCHW, PyTorch's
+layout; the JAX package's are NHWC.
 """
 
 import math
@@ -29,18 +31,91 @@ class MLP(nn.Module):
     def dense_layers(self):
         return [getattr(self, f"TorchDense_{i}") for i in range(self.num_layers)]
 
-    @torch.no_grad()
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        for layer in self.dense_layers():
-            bound = 1.0 / math.sqrt(layer.in_features)
-            layer.weight.uniform_(-bound, bound, generator=generator)
-            layer.bias.uniform_(-bound, bound, generator=generator)
-
     def forward(self, x):
         layers = self.dense_layers()
         for layer in layers[:-1]:
             x = F.elu(layer(x))
         return layers[-1](x)
+
+
+class ConvNoTF32:
+    """Context in which cuDNN runs float32 convolutions in full float32.
+
+    cuDNN's default runs them in TF32 (about three decimal digits), which
+    would move the ResNet away from the float32 reference; the ResNet's
+    forward passes enter this context instead of relying on a global flag.
+    (Float32 matmuls already default to full float32.)
+    """
+
+    def __enter__(self):
+        self._prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self._prev
+
+
+def conv(in_channels: int, out_channels: int, kernel_size: int,
+         bias: bool) -> nn.Conv2d:
+    """SAME-padded stride-1 conv, the JAX package's TorchConv (its init,
+    U(+-1/sqrt(fan_in)) for kernel and bias, is nn.Conv2d's default)."""
+    return nn.Conv2d(in_channels, out_channels, kernel_size,
+                     padding=kernel_size // 2, bias=bias)
+
+
+def conv3x3(in_channels: int, out_channels: int, bias: bool = False) -> nn.Conv2d:
+    """3x3 conv, pad 1, no bias (reference models.py:206-209); the folded
+    variant carries the folded batch norm as its bias."""
+    return conv(in_channels, out_channels, 3, bias)
+
+
+@torch.no_grad()
+def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None):
+    """Redraw every conv and dense layer's TorchConv/TorchDense init,
+    U(+-1/sqrt(fan_in)) for weight and bias, from `generator`, in module
+    order; batch norms go back to identity with fresh running stats."""
+    for layer in module.modules():
+        if isinstance(layer, (nn.Conv2d, nn.Linear)):
+            fan_in = layer.weight[0].numel()
+            bound = 1.0 / math.sqrt(fan_in)
+            layer.weight.uniform_(-bound, bound, generator=generator)
+            if layer.bias is not None:
+                layer.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(layer, nn.BatchNorm2d):
+            layer.reset_parameters()
+
+
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    """flax nn.BatchNorm(momentum=0.9), eps 1e-5: torch's momentum is the
+    weight of the new batch, 1 - 0.9."""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class ResidualBlock(nn.Module):
+    """conv-bn-relu-conv-bn + skip, relu (reference models.py:213-229), NCHW.
+
+    fold_bn: the inference-only variant with each batch norm folded into its
+    conv (models/network.py fold_bn). Submodules carry the flax names
+    (TorchConv_i, BatchNorm_i) so a JAX tree maps on by name.
+    """
+
+    def __init__(self, channels: int, fold_bn: bool = False):
+        super().__init__()
+        self.fold_bn = fold_bn
+        self.TorchConv_0 = conv3x3(channels, channels, bias=fold_bn)
+        if not fold_bn:
+            self.BatchNorm_0 = batch_norm(channels)
+        self.TorchConv_1 = conv3x3(channels, channels, bias=fold_bn)
+        if not fold_bn:
+            self.BatchNorm_1 = batch_norm(channels)
+
+    def forward(self, x):
+        if self.fold_bn:
+            out = F.relu(self.TorchConv_0(x))
+            return F.relu(self.TorchConv_1(out) + x)
+        out = F.relu(self.BatchNorm_0(self.TorchConv_0(x)))
+        out = self.BatchNorm_1(self.TorchConv_1(out))
+        return F.relu(out + x)
 
 
 def normalize_hidden_fc(h: torch.Tensor) -> torch.Tensor:
@@ -51,6 +126,17 @@ def normalize_hidden_fc(h: torch.Tensor) -> torch.Tensor:
     """
     h_min = torch.amin(h, dim=-1, keepdim=True)
     h_max = torch.amax(h, dim=-1, keepdim=True)
+    scale = h_max - h_min
+    scale = torch.where(scale < 1e-5, scale + 1e-5, scale)
+    return (h - h_min) / scale
+
+
+def normalize_hidden_conv(h: torch.Tensor) -> torch.Tensor:
+    """Min-max normalize an NCHW hidden state per (sample, channel) over H, W
+    (reference models.py:529-553), with normalize_hidden_fc's small-scale
+    rule."""
+    h_min = torch.amin(h, dim=(-2, -1), keepdim=True)
+    h_max = torch.amax(h, dim=(-2, -1), keepdim=True)
     scale = h_max - h_min
     scale = torch.where(scale < 1e-5, scale + 1e-5, scale)
     return (h - h_min) / scale

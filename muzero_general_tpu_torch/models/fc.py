@@ -5,7 +5,7 @@ per-sample min-max hidden normalization, one-hot action concatenated in
 dynamics. The reward head reads the UNNORMALIZED dynamics output.
 """
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -56,10 +56,6 @@ class FCMuZero(nn.Module):
         self.prediction_value_network = MLP(
             encoding_size, fc_value_layers, self.full_support_size
         )
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        for module in self.children():
-            module.reset_parameters(generator)
 
     def representation(self, observation):
         """observation: [B, C', H, W] stacked planes -> hidden [B, E]."""

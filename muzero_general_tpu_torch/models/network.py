@@ -1,79 +1,158 @@
-"""Network factory and the weight carry from the JAX package (port of the FC
-branch of models/network.py).
+"""Network factory, batch-norm folding and the weight carry from the JAX
+package (port of models/network.py).
 
 `MuZeroNetwork(config)` dispatches on `config.network` like reference
 models.py:7-41 and returns the module itself, in eval mode, on the device:
 in PyTorch the module holds its weights, so no separate runner is needed.
 """
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from muzero_general_tpu_torch.device import resolve_device
+from muzero_general_tpu_torch.models.common import reset_parameters
 from muzero_general_tpu_torch.models.fc import FCMuZero
+from muzero_general_tpu_torch.models.resnet import ResMuZero
 
-FC_NETWORKS = (
-    "representation_network",
-    "dynamics_state_network",
-    "dynamics_reward_network",
-    "prediction_policy_network",
-    "prediction_value_network",
-)
+# flax leaf name -> torch state-dict name, per layer kind
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
 
 
-def MuZeroNetwork(config, device=None, seed: Optional[int] = None) -> FCMuZero:
+def MuZeroNetwork(config, device=None,
+                  seed: Optional[int] = None) -> Union[FCMuZero, ResMuZero]:
     """Build the config's network on `device` (None = "cuda").
 
-    Weights get the torch.nn.Linear default init, drawn from a generator
-    seeded with `seed` (default config.seed).
+    Weights get the TorchDense/TorchConv init, drawn from a generator seeded
+    with `seed` (default config.seed). The port computes in float32:
+    compute_dtype "bfloat16" raises (ROADMAP module item 12).
     """
     device = resolve_device(device)
-    if config.network == "resnet":
+    if getattr(config, "compute_dtype", "float32") != "float32":
         raise NotImplementedError(
-            "the ResNet network is not ported yet (ROADMAP module item 12)"
+            f"compute_dtype={config.compute_dtype!r} is not ported yet (ROADMAP "
+            "module item 12); the port computes in float32"
         )
-    if config.network != "fullyconnected":
+    if config.network == "fullyconnected":
+        module = FCMuZero(
+            observation_shape=tuple(config.observation_shape),
+            stacked_observations=config.stacked_observations,
+            action_space_size=len(config.action_space),
+            encoding_size=config.encoding_size,
+            fc_reward_layers=tuple(config.fc_reward_layers),
+            fc_value_layers=tuple(config.fc_value_layers),
+            fc_policy_layers=tuple(config.fc_policy_layers),
+            fc_representation_layers=tuple(config.fc_representation_layers),
+            fc_dynamics_layers=tuple(config.fc_dynamics_layers),
+            support_size=config.support_size,
+        )
+    elif config.network == "resnet":
+        module = ResMuZero(
+            observation_shape=tuple(config.observation_shape),
+            stacked_observations=config.stacked_observations,
+            action_space_size=len(config.action_space),
+            num_blocks=config.blocks,
+            num_channels=config.channels,
+            reduced_channels_reward=config.reduced_channels_reward,
+            reduced_channels_value=config.reduced_channels_value,
+            reduced_channels_policy=config.reduced_channels_policy,
+            fc_reward_layers=tuple(config.resnet_fc_reward_layers),
+            fc_value_layers=tuple(config.resnet_fc_value_layers),
+            fc_policy_layers=tuple(config.resnet_fc_policy_layers),
+            support_size=config.support_size,
+            downsample=config.downsample,
+        )
+    else:
         raise NotImplementedError(
             'The network parameter should be "fullyconnected" or "resnet".'
         )
-    module = FCMuZero(
-        observation_shape=tuple(config.observation_shape),
-        stacked_observations=config.stacked_observations,
-        action_space_size=len(config.action_space),
-        encoding_size=config.encoding_size,
-        fc_reward_layers=tuple(config.fc_reward_layers),
-        fc_value_layers=tuple(config.fc_value_layers),
-        fc_policy_layers=tuple(config.fc_policy_layers),
-        fc_representation_layers=tuple(config.fc_representation_layers),
-        fc_dynamics_layers=tuple(config.fc_dynamics_layers),
-        support_size=config.support_size,
-    )
     generator = torch.Generator().manual_seed(
         config.seed if seed is None else seed
     )
-    module.reset_parameters(generator)
+    reset_parameters(module, generator)
     return module.to(device).eval()
 
 
-def params_from_jax(params: dict) -> dict:
-    """Map a flax FCMuZero parameter tree onto FCMuZero's state dict.
+@torch.no_grad()
+def fold_bn(network: ResMuZero) -> ResMuZero:
+    """Fold every batch norm into its preceding conv (inference only).
 
-    `params` is the variables dict ({"params": ...}, as saved in
-    model.checkpoint "weights") or its "params" subtree:
-    {<network>: {"TorchDense_<i>": {"kernel": [in, out], "bias": [out]}}}.
-    Flax kernels are [in, out]; torch.nn.Linear weights are [out, in].
-    Returns CPU float32 tensors; load with `module.load_state_dict`.
+    The counterpart of the JAX package's fold_bn_variables
+    (models/network.py:20-67): in every scope, TorchConv_i followed by
+    BatchNorm_i becomes a biased conv with
+      weight' = weight * s,   bias' = beta - mean * s (+ bias * s),
+      s = gamma * rsqrt(running_var + eps)   (per output channel).
+    Returns a new fold_bn=True module on the same device; its outputs equal
+    the network's up to float reassociation, with no normalization pass.
     """
-    params = params.get("params", params)
+    modules = dict(network.named_modules())
     state = {}
-    for name in FC_NETWORKS:
-        for layer, leaves in params[name].items():
-            prefix = f"{name}.{layer}"
-            kernel = np.asarray(leaves["kernel"], np.float32)
-            state[prefix + ".weight"] = torch.from_numpy(kernel.T.copy())
-            state[prefix + ".bias"] = torch.from_numpy(
-                np.asarray(leaves["bias"], np.float32).copy()
-            )
+    for name, module in modules.items():
+        if isinstance(module, nn.Linear):
+            state[f"{name}.weight"] = module.weight
+            state[f"{name}.bias"] = module.bias
+        elif isinstance(module, nn.Conv2d):
+            scope, _, leaf = name.rpartition(".")
+            bn = modules.get(f"{scope}.BatchNorm_{leaf.split('_', 1)[1]}")
+            if bn is None:
+                state[f"{name}.weight"] = module.weight
+                if module.bias is not None:
+                    state[f"{name}.bias"] = module.bias
+                continue
+            s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            bias = bn.bias - bn.running_mean * s
+            if module.bias is not None:
+                bias = bias + module.bias * s
+            state[f"{name}.weight"] = module.weight * s[:, None, None, None]
+            state[f"{name}.bias"] = bias
+    folded = network.folded_twin()
+    folded.load_state_dict(state)
+    return folded
+
+
+def _flatten(tree: dict, prefix: str = ""):
+    """Nested flax dicts -> {(scope, leaf_name): array}."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield (prefix.rstrip("."), key), value
+
+
+def params_from_jax(variables: dict) -> dict:
+    """Map a flax FCMuZero or ResMuZero variable tree onto the port's state
+    dict (load it with `module.load_state_dict`).
+
+    `variables` is the dict saved in model.checkpoint "weights"
+    ({"params": ..., "batch_stats": ...} for a ResNet) or, for an FC net,
+    its "params" subtree. Layers map by name:
+    - TorchDense kernels [in, out] become nn.Linear weights [out, in];
+    - TorchConv kernels HWIO become nn.Conv2d weights OIHW;
+    - BatchNorm scale/bias (params) and mean/var (batch_stats) become
+      weight/bias/running_mean/running_var.
+    The ResNet heads flatten in the JAX (h, w, c) order (models/resnet.py),
+    so their dense kernels need no row permutation. Returns CPU float32
+    tensors.
+    """
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats", {})
+    state = {}
+    for (scope, leaf), value in _flatten(params):
+        x = np.asarray(value, np.float32)
+        layer = scope.rpartition(".")[2]
+        if layer.startswith("BatchNorm_"):
+            name = _BN_LEAVES[leaf]
+        elif leaf == "kernel":
+            name = "weight"
+            x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
+        else:
+            name = leaf
+        state[f"{scope}.{name}"] = torch.from_numpy(np.array(x))
+    for (scope, leaf), value in _flatten(stats):
+        x = np.asarray(value, np.float32)
+        state[f"{scope}.{_BN_LEAVES[leaf]}"] = torch.from_numpy(x.copy())
+        state[f"{scope}.num_batches_tracked"] = torch.tensor(0)
     return state

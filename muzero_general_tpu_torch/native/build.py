@@ -7,6 +7,7 @@ carries a hash of its source and flags, so an edited source is rebuilt.
 Nothing is compiled when a module is imported.
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -41,6 +42,28 @@ _KERNELS = {
                    ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p],
             ),
             "mcts_fused_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        },
+    },
+    "mcts_kernels": {
+        # The staged search's descent and backprop: no FMA contraction, so
+        # they match their plain versions (ops/mcts_kernels.py) bit for bit.
+        "flags": ["--fmad=false"],
+        "api": {
+            "mcts_descend_planar": (
+                ctypes.c_int,
+                [ctypes.c_void_p] * 14
+                + [ctypes.c_int] * 5
+                + [ctypes.c_float] * 4
+                + [ctypes.c_ulonglong, ctypes.c_void_p],
+            ),
+            "mcts_backprop": (
+                ctypes.c_int,
+                [ctypes.c_void_p] * 12
+                + [ctypes.c_int] * 6
+                + [ctypes.c_float] * 2
+                + [ctypes.c_void_p],
+            ),
+            "mcts_kernels_error_string": (ctypes.c_char_p, [ctypes.c_int]),
         },
     },
 }
@@ -96,6 +119,15 @@ def build(name: str) -> dict:
     log_path.write_text(log)
     os.replace(tmp, out)
     return {"path": out, "seconds": seconds, "log": log}
+
+
+def build_all(names=None) -> dict:
+    """Build several kernels at once, one nvcc process each, all started
+    together. Returns {name: build(name)'s result}; raises if any fails."""
+    names = list(_KERNELS) if names is None else list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: future.result() for name, future in futures.items()}
 
 
 def load_library(name: str) -> ctypes.CDLL:

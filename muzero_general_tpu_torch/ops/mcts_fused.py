@@ -25,14 +25,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
+from muzero_general_tpu_torch.ops.philox import TIE_JITTER, U32_RANGE, jitter_bits
 from muzero_general_tpu_torch.ops.support import support_to_scalar
 
-TIE_JITTER = 1e-5
 _EPS = 0.001  # support codec epsilon (reference models.py:661,675)
-_U32_RANGE = 4.2949673e9  # jitter scale divisor, as in the JAX kernel
-_MASK32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key increments (Weyl sequence)
 
 
 class FusedSpec(NamedTuple):
@@ -180,41 +176,6 @@ def _dense(x, w, b):
     return _matmul_seq(x, w) + b
 
 
-def _mulhilo32(m: int, x):
-    """(high, low) 32-bit words of m * x, for a uint32 constant m and uint32
-    values x held in int64: 16-bit limbs keep every product below 2^63."""
-    p_lo = (x & 0xFFFF) * m
-    mid = (x >> 16) * m + (p_lo >> 16)
-    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
-
-
-def philox4x32_10(counter, key: int):
-    """Philox4x32-10 (Salmon et al., SC'11), as csrc/mcts_fused.cu computes it.
-
-    counter: four int64 tensors of uint32 words (broadcastable); key: the
-    64-bit seed, low word first. Returns the four output words."""
-    c0, c1, c2, c3 = torch.broadcast_tensors(*counter)
-    k0, k1 = key & _MASK32, (key >> 32) & _MASK32
-    for _ in range(10):
-        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _PHILOX_W[0]) & _MASK32
-        k1 = (k1 + _PHILOX_W[1]) & _MASK32
-    return c0, c1, c2, c3
-
-
-def _jitter_bits(B, A, sim, levels, key, dev):
-    """The kernel's tie-jitter bits [B, levels, A] (int64 in [0, 2^32)) of
-    one simulation: action a at a level takes word a % 4 of the Philox
-    block at counter (lane, simulation, level, a // 4)."""
-    lane = torch.arange(B, dtype=torch.int64, device=dev)[:, None, None]
-    level = torch.arange(levels, dtype=torch.int64, device=dev)[None, :, None]
-    group = torch.arange((A + 3) // 4, dtype=torch.int64, device=dev)[None, None, :]
-    words = philox4x32_10((lane, torch.tensor(sim, device=dev), level, group), key)
-    return torch.stack(words, -1).reshape(B, levels, -1)[:, :, :A]
-
-
 def _mlp(x, layers):
     for i, (w, b) in enumerate(layers):
         x = _dense(x, w, b)
@@ -254,7 +215,7 @@ def search_plain(
     root_reward [B] f32, to_play [B] i32, legal [B, A] (nonzero = legal).
     Returns (root visits [B, A] i32, root value [B] f32, max depth [B] i32).
     A tie_jitter > 0 adds the kernel's own jitter: the Philox4x32-10 stream
-    keyed by `seed` (philox4x32_10, _jitter_bits).
+    keyed by `seed` (ops/philox.py).
     """
     dev = prior.device
     B, A = prior.shape
@@ -277,7 +238,7 @@ def search_plain(
     base_t = torch.tensor(pb_c_base, device=dev)
     two_eps = torch.tensor(2.0 * _EPS, device=dev)
     key = int(seed) & 0xFFFFFFFFFFFFFFFF  # as the wrapper passes it
-    jitter_scale = tie_jitter / _U32_RANGE
+    jitter_scale = tie_jitter / U32_RANGE
 
     visit = torch.zeros((B, N), dtype=torch.int32, device=dev)
     vsum = torch.zeros((B, N), device=dev)
@@ -311,7 +272,7 @@ def search_plain(
         path[:, 0] = 0
         levels = min(bnd + 1, N - 1)
         if tie_jitter > 0:
-            bits = _jitter_bits(B, A, sim, levels, key, dev)
+            bits = jitter_bits(B, A, sim, levels, key, dev)
         for t in range(levels):
             idx = child_index[ar, current]  # [B, A]
             exists = idx >= 0
@@ -470,7 +431,7 @@ def search(
             to_play.data_ptr(), legal.data_ptr(), weights.flat.data_ptr(),
             visits.data_ptr(), value.data_ptr(), depth.data_ptr(),
             B, A, E, num_sims, num_players, support_size,
-            pb_c_base, pb_c_init, discount, tie_jitter / _U32_RANGE,
+            pb_c_base, pb_c_init, discount, tie_jitter / U32_RANGE,
             int(seed) & 0xFFFFFFFFFFFFFFFF,
             counts, dims, len(weights.dims), stream,
         )

@@ -1,18 +1,26 @@
 """Batched on-device self-play driver (port of selfplay.py:68-403).
 
-G games advance in lockstep on one device: observation stacking, the fused
-MCTS search, temperature action sampling, env step and auto-reset, for
+G games advance in lockstep on one device: observation stacking, the MCTS
+search, temperature action sampling, env step and auto-reset, for
 `selfplay_chunk_moves` moves per `play` call (the JAX package's `scan` over
 moves is a Python loop here). The host cuts the emitted per-move records
 into complete `GameHistory` episodes at done boundaries.
+
+The search is routed as the JAX driver routes it: FC networks go to the
+fused single-kernel search (ops/mcts_fused.py) unless `use_fused_search` is
+False, everything else to the staged search (ops/mcts.py run_mcts), whose
+descent and backprop run as kernels where SearchSpec.from_config engages
+them. A ResNet's batch norms are folded into its convs once per play_chunk
+(`fold_bn_inference`).
 
 Evaluation is folded in as greedy lanes: lanes [0, greedy_lanes) play at
 temperature 0 inside the same batch and their episodes come back in
 stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
 
-Not ported yet: the mesh/dp sharding of lanes (ROADMAP module item 19), the
-staged search for networks the fused kernel does not take (item 6), Gumbel
-search (item 16) and BN folding for ResNets (item 12).
+Not ported yet, and refused with NotImplementedError: Gumbel search (ROADMAP
+module item 16), multi-leaf search (item 14), the streaming search kernels
+for big boards (kernels 4-5, item 15), bf16 search activations (item 12).
+The mesh/dp sharding of lanes (item 19) is not ported either.
 """
 
 from typing import NamedTuple, Optional
@@ -22,6 +30,8 @@ import torch
 
 from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.envs.core import where_state
+from muzero_general_tpu_torch.models import fold_bn
+from muzero_general_tpu_torch.models.resnet import ResMuZero
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
 from muzero_general_tpu_torch.ops import mcts_fused
 from muzero_general_tpu_torch.ops.stacking import (
@@ -64,24 +74,32 @@ class SelfPlayDriver:
             raise NotImplementedError(
                 "Gumbel search is not ported yet (ROADMAP module item 16)"
             )
-        if config.network != "fullyconnected":
+        if getattr(config, "search_bf16_activations", False):
             raise NotImplementedError(
-                "self-play with a ResNet is not ported yet (ROADMAP module "
-                "items 6 and 12, kernels 2 and 3)"
-            )
-        # The fused search is the port's only search: "auto" and True run it
-        # (on CPU tensors through its plain version).
-        if config.use_fused_search is False:
-            raise NotImplementedError(
-                "the staged search (ops/mcts.py run_mcts) is not ported yet "
-                "(ROADMAP module item 6)"
+                "bf16 search activations are not ported yet (ROADMAP module "
+                "item 12); the port computes in float32"
             )
         self.env = env
         self.network = network
         self.config = config
         self.G = num_games or config.parallel_games
         self.greedy_lanes = greedy_lanes
-        self.fused_spec = mcts_fused.FusedSpec.from_config(config)
+        # Raises for multi-leaf and stream-class configurations.
+        self.spec = mcts_ops.SearchSpec.from_config(config, self.G, self.device)
+        # The fused single-kernel search takes FC networks ("auto" and True,
+        # on CPU tensors through its plain version); False, and every ResNet,
+        # run the staged search.
+        self.use_fused = (
+            config.network == "fullyconnected"
+            and config.use_fused_search is not False
+        )
+        if self.use_fused:
+            self.fused_spec = mcts_fused.FusedSpec.from_config(config)
+        # BN folding for the search path (ResNet only), once per play_chunk.
+        self.fold_bn = (
+            bool(getattr(config, "fold_bn_inference", True))
+            and isinstance(network, ResMuZero)
+        )
         self.A = env.num_actions
         self._n = config.stacked_observations
         self._obs_shape = tuple(env.observation_shape)
@@ -109,18 +127,27 @@ class SelfPlayDriver:
         self._carry = SelfPlayCarry(states, obs_hist, act_hist, move_count)
         self._pending = [[] for _ in range(self.G)]
 
-    def _one_move(self, carry, temperature, add_noise, weights):
+    def _one_move(self, carry, temperature, add_noise, net):
+        """One move of every lane. `net`: the packed FusedWeights on the
+        fused route, else the (folded) network the staged search runs."""
         env, config = self.env, self.config
         stacked = stack_observations(carry.obs_hist, carry.act_hist, self.A)
         legal = env.legal_actions_mask(carry.env_state)
         to_play = env.to_play(carry.env_state)
         seed = int(torch.randint(0, 2**31 - 1, (1,),
                                  generator=self._seed_generator))
-        out = mcts_fused.run_mcts_fused(
-            self.network, stacked, legal, to_play, self.generator,
-            self.fused_spec, add_exploration_noise=add_noise, weights=weights,
-            seed=seed,
-        )
+        if self.use_fused:
+            out = mcts_fused.run_mcts_fused(
+                self.network, stacked, legal, to_play, self.generator,
+                self.fused_spec, add_exploration_noise=add_noise, weights=net,
+                seed=seed,
+            )
+        else:
+            out = mcts_ops.run_mcts(
+                net.initial_inference, net.recurrent_inference, stacked, legal,
+                to_play, self.generator, self.spec,
+                add_exploration_noise=add_noise, seed=seed,
+            )
         policy_target = mcts_ops.visit_policy(out.root_visit_counts)
         # Per-lane temperature; drops to 0 after temperature_threshold moves
         # (reference self_play.py:151-157).
@@ -171,13 +198,19 @@ class SelfPlayDriver:
             self.reset()
         temperature = torch.as_tensor(temperature, dtype=torch.float32,
                                       device=self.device)
-        # The networks are packed once per chunk, like the JAX package's
-        # per-chunk weight fold.
-        weights = mcts_fused.fused_weights(self.network, self.config.encoding_size)
+        # The search's weights are prepared once per chunk, like the JAX
+        # package's per-chunk fold: packed for the fused kernel, or the
+        # ResNet's batch norms folded into its convs.
+        if self.use_fused:
+            net = mcts_fused.fused_weights(self.network, self.config.encoding_size)
+        elif self.fold_bn:
+            net = fold_bn(self.network)
+        else:
+            net = self.network
         records = []
         carry = self._carry
         for _ in range(num_moves):
-            carry, record = self._one_move(carry, temperature, add_noise, weights)
+            carry, record = self._one_move(carry, temperature, add_noise, net)
             records.append(record)
         self._carry = carry
         return MoveRecord(*(torch.stack(field) for field in zip(*records)))

@@ -1,4 +1,6 @@
-"""The fused-search CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+fused search (ops/mcts_fused.py) and the staged search's planar descent and
+backprop (ops/mcts_kernels.py).
 
 Every test here carries the `gpu` marker and skips without a CUDA card. The
 file imports no JAX, so it also runs where JAX is absent; there the suite's
@@ -8,16 +10,19 @@ conftest (which imports JAX) is left out:
 
 Kernel and plain version get the same card tensors and run the same float32
 operations in the same order, with the same Philox tie jitter when it is on,
-so visit counts and depth must be equal and root values agree to 1e-5.
+so visit counts and depth must be equal and root values agree to 1e-5; the
+tree kernels' outputs (paths, visits, value sums, min/max) are equal.
 """
 
 import pytest
 import torch
 
 from muzero_general_tpu_torch.config import MuZeroConfig as BaseConfig
+from muzero_general_tpu_torch.games import connect4
 from muzero_general_tpu_torch.games.cartpole import MuZeroConfig, make_env
-from muzero_general_tpu_torch.models import MuZeroNetwork
-from muzero_general_tpu_torch.ops import mcts_fused
+from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
+from muzero_general_tpu_torch.ops import mcts as mcts_ops
+from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
 from muzero_general_tpu_torch.selfplay import SelfPlayDriver
 
 pytestmark = pytest.mark.gpu
@@ -130,3 +135,143 @@ def test_selfplay_runs_through_the_kernel(cuda):
     _, stats = driver.play(temperature=1.0)
     assert mcts_fused.search.launches == before + 5
     assert stats["env_steps"] == 160 and stats["max_tree_depth"] >= 1
+
+
+# ---- the staged search's tree kernels --------------------------------------
+
+
+def _tree(dev, num_players, B=64, sims=40, seed=0):
+    """A real connect4-shaped tree (1 x 16 ResNet, random init) after `sims`
+    of 2 * sims simulations, planar, with the search's spec and inputs."""
+    cfg = connect4.MuZeroConfig()
+    cfg.blocks, cfg.channels = 1, 16
+    cfg.num_simulations = 2 * sims
+    cfg.players = list(range(num_players))
+    cfg.use_pallas_mcts = True
+    net = fold_bn(MuZeroNetwork(cfg, device=dev, seed=seed))
+    env = connect4.make_env(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = env.reset(B, gen)
+    for _ in range(4):
+        state, _, _ = env.step(state, env.random_legal_action(state, gen), gen)
+    spec = mcts_ops.SearchSpec.from_config(cfg, B, dev)
+    legal = env.legal_actions_mask(state)
+    with torch.no_grad():
+        out = mcts_ops.run_mcts(net.initial_inference, net.recurrent_inference,
+                                env.observation(state), legal, env.to_play(state), gen,
+                                spec, seed=seed, num_steps=sims)
+    bound = (out.max_tree_depth.max() + 1).to(torch.int32)
+    return mcts_ops._to_planar(out.tree), spec, legal.to(torch.int32), bound, sims
+
+
+def _descend_args(tree, spec, legal, bound, sim, seed, tie_jitter):
+    args = (seed, sim, bound, tree.children_index, tree.children_prior,
+            tree.children_visit, tree.children_vsum, tree.children_reward, legal,
+            tree.min_value, tree.max_value)
+    kw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+              pb_c_init=spec.pb_c_init, discount=spec.discount,
+              max_depth=spec.max_depth, tie_jitter=tie_jitter)
+    return args, kw
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_descend_kernel_matches_plain(cuda, num_players, tie_jitter):
+    tree, spec, legal, bound, sim = _tree(cuda, num_players)
+    args, kw = _descend_args(tree, spec, legal, bound, sim, (1 << 35) + 3, tie_jitter)
+    before = mcts_kernels.descend_planar.launches
+    got = mcts_kernels.descend_planar(*args, **kw)
+    want = mcts_kernels.descend_planar_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert mcts_kernels.descend_planar.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].min()) >= 1
+    # A bound too small for the tree marks the cut lanes -1, as the plain one.
+    args = args[:2] + (torch.tensor(1, dtype=torch.int32, device=cuda),) + args[3:]
+    got = mcts_kernels.descend_planar(*args, **kw)
+    want = mcts_kernels.descend_planar_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[2] == -1).any())
+
+
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_descend_kernel_breaks_exact_ties_as_plain(cuda, tie_jitter):
+    """A fresh root whose legal actions all score the same: without jitter
+    the first legal index wins, with it the Philox stream decides; the
+    kernel picks as the plain version does either way."""
+    B, A, N = 96, 7, 9
+    i32 = dict(dtype=torch.int32, device=cuda)
+    idx = torch.full((B, A, N), -1, **i32)
+    prior = torch.full((B, A, N), 1.0 / A, device=cuda)
+    zeros_i, zeros_f = torch.zeros((B, A, N), **i32), torch.zeros((B, A, N), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    legal = (torch.rand((B, A), generator=gen, device=cuda) < 0.6).to(torch.int32)
+    legal[:, A - 1] = 1
+    inf = torch.full((B,), float("inf"), device=cuda)
+    args = (7, 2, torch.tensor(3, **i32), idx, prior, zeros_i, zeros_f, zeros_f, legal,
+            inf, -inf)
+    kw = dict(num_players=2, pb_c_base=19652.0, pb_c_init=1.25, discount=1.0,
+              max_depth=N - 1, tie_jitter=tie_jitter)
+    got = mcts_kernels.descend_planar(*args, **kw)
+    want = mcts_kernels.descend_planar_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if tie_jitter == 0.0:
+        assert torch.equal(got[1].long(), torch.argmax(legal, dim=1))
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+@pytest.mark.parametrize("planar", [True, False])
+def test_backprop_kernel_matches_plain(cuda, num_players, planar):
+    tree, spec, legal, bound, sim = _tree(cuda, num_players, seed=1)
+    args, kw = _descend_args(tree, spec, legal, bound, sim, 5, 1e-5)
+    _, _, leaf_depth, path_n, path_a = mcts_kernels.descend_planar(*args, **kw)
+    leaf_depth[::7] = -1  # lanes the bound cut: nothing to back up
+    if not planar:
+        tree = mcts_ops._from_planar(tree)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    leaf_value = torch.randn(leaf_depth.shape, generator=gen, device=cuda)
+    outs = []
+    for fn in (mcts_kernels.backprop, mcts_kernels.backprop_plain):
+        t = mcts_ops.Tree(*(x.clone() for x in tree))
+        outs.append(fn(path_n, path_a, leaf_depth, leaf_value, t.children_visit,
+                       t.children_vsum, t.children_reward, t.root_visit, t.root_vsum,
+                       t.root_reward, t.min_value, t.max_value,
+                       num_players=num_players, discount=spec.discount, planar=planar))
+    torch.cuda.synchronize()
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    assert torch.equal(outs[0][2] - tree.root_visit, (leaf_depth >= 0).to(torch.int32))
+
+
+def test_tree_kernels_reject_bad_inputs(cuda):
+    tree, spec, legal, bound, sim = _tree(cuda, 2, B=8, sims=6)
+    args, kw = _descend_args(tree, spec, legal, bound, sim, 0, 0.0)
+    with pytest.raises(ValueError, match="dtype"):
+        mcts_kernels.descend_planar(*args[:8], legal.bool(), *args[9:], **kw)
+    with pytest.raises(ValueError, match="depth_bound"):
+        mcts_kernels.descend_planar(*args[:2], int(bound), *args[3:], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        prior = tree.children_prior.transpose(1, 2).contiguous().transpose(1, 2)
+        mcts_kernels.descend_planar(*args[:4], prior, *args[5:], **kw)
+    _, _, depth, path_n, path_a = mcts_kernels.descend_planar(*args, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        mcts_kernels.backprop(path_n, path_a, depth, torch.zeros(8), tree.children_visit,
+                              tree.children_vsum, tree.children_reward, tree.root_visit,
+                              tree.root_vsum, tree.root_reward, tree.min_value,
+                              tree.max_value, num_players=2, discount=1.0)
+
+
+def test_connect4_selfplay_runs_through_the_tree_kernels(cuda):
+    cfg = connect4.MuZeroConfig()
+    cfg.blocks, cfg.channels = 1, 16
+    cfg.parallel_games, cfg.num_simulations, cfg.selfplay_chunk_moves = 16, 20, 3
+    driver = SelfPlayDriver(connect4.make_env(), MuZeroNetwork(cfg), cfg, seed=0)
+    assert driver.spec.use_kernels and not driver.use_fused
+    before = (mcts_kernels.descend_planar.launches, mcts_kernels.backprop.launches)
+    _, stats = driver.play(temperature=1.0)
+    after = (mcts_kernels.descend_planar.launches, mcts_kernels.backprop.launches)
+    assert after == (before[0] + 60, before[1] + 60)
+    assert stats["env_steps"] == 48 and stats["max_tree_depth"] >= 2

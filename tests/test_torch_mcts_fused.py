@@ -27,6 +27,7 @@ from muzero_general_tpu_torch.games.cartpole import MuZeroConfig
 from muzero_general_tpu_torch.models import MuZeroNetwork, params_from_jax
 from muzero_general_tpu_torch.ops import mcts as torch_mcts
 from muzero_general_tpu_torch.ops import mcts_fused as torch_fused
+from muzero_general_tpu_torch.ops import philox
 
 B = 8
 VALUE_ATOL = 5e-5  # see the module docstring
@@ -192,7 +193,7 @@ def _philox_reference(ctr, key):
 ])
 def test_philox_known_answers(ctr, key, want):
     seed = key[0] | key[1] << 32
-    got = torch_fused.philox4x32_10(tuple(torch.tensor([c]) for c in ctr), seed)
+    got = philox.philox4x32_10(tuple(torch.tensor([c]) for c in ctr), seed)
     assert [int(w) for w in got] == want
     assert _philox_reference(ctr, seed) == want
 
@@ -203,11 +204,11 @@ def test_plain_jitter_is_the_kernels_philox_stream():
     rng = np.random.default_rng(0)
     ctr = rng.integers(0, 2**32, size=(4, 32), dtype=np.uint64).astype(np.int64)
     seed = int(rng.integers(0, 2**63))
-    got = torch_fused.philox4x32_10(tuple(torch.from_numpy(c) for c in ctr), seed)
+    got = philox.philox4x32_10(tuple(torch.from_numpy(c) for c in ctr), seed)
     for j in range(ctr.shape[1]):
         assert [int(w[j]) for w in got] == _philox_reference(ctr[:, j].tolist(), seed)
     lanes, A, sim, levels = 3, 6, 17, 5
-    bits = torch_fused._jitter_bits(lanes, A, sim, levels, seed, torch.device("cpu"))
+    bits = philox.jitter_bits(lanes, A, sim, levels, seed, torch.device("cpu"))
     assert bits.shape == (lanes, levels, A)
     for b in range(lanes):
         for t in range(levels):

@@ -1,0 +1,181 @@
+"""The tree kernels' plain versions (ops/mcts_kernels.py) against the JAX
+package's Pallas kernels in interpret mode (ops/mcts_pallas.py).
+
+Both sides get real trees: the tree of a JAX run_mcts at a small size (the
+table network of tests/test_torch_mcts.py), in the planar [B, A, N] layout
+the kernels read. Interpret mode has no tie jitter, so both run with 0. The
+plain versions repeat the kernels' float32 operations in their order, so
+descend outputs and visit counts are compared exactly. Value sums and
+min/max agree to RTOL = 1e-6 (a few ulp): XLA on the CPU contracts the
+one-player backup `reward + discount * value` into a fused multiply-add,
+rounded once, where the port rounds the product and the sum (its kernel is
+built with --fmad=false); with two players the discount is 1 and they are
+exact.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from muzero_general_tpu.ops import mcts as jax_mcts
+from muzero_general_tpu.ops import mcts_pallas
+from muzero_general_tpu_torch.ops import mcts_kernels, philox
+
+from test_torch_mcts import _inputs, _specs, _tables, jax_table_net
+
+B, A, SIMS = 8, 5, 25
+RTOL = 1e-6  # see the module docstring
+SLABS = ("children_index", "children_prior", "children_visit", "children_vsum",
+         "children_reward")
+
+
+def _jax_tree(num_players, seed):
+    """A JAX run_mcts tree after SIMS simulations, numpy, node-major."""
+    tables = _tables(A, seed)
+    obs, legal, to_play = _inputs(B, A, seed + 1)
+    jspec, _ = _specs(num_players, SIMS, False)
+    out = jax_mcts.run_mcts(
+        *jax_table_net(tables, A), jnp.asarray(obs), jnp.asarray(legal),
+        jnp.asarray(to_play), jax.random.PRNGKey(seed), jspec,
+        add_exploration_noise=True,
+    )
+    tree = {k: np.array(v) for k, v in out.tree._asdict().items()}
+    return tree, int(np.asarray(out.max_tree_depth).max()), jspec
+
+
+def _planar(tree):
+    return {k: (np.ascontiguousarray(v.transpose(0, 2, 1)) if k in SLABS else v)
+            for k, v in tree.items()}
+
+
+def _descend_both(tree, depth_bound, spec, tie_jitter=0.0):
+    p = _planar(tree)
+    kw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+              pb_c_init=spec.pb_c_init, discount=spec.discount, max_depth=SIMS)
+    want = mcts_pallas.descend_planar(
+        0, depth_bound, *(jnp.asarray(p[k]) for k in SLABS),
+        jnp.asarray(p["root_legal"]), jnp.asarray(p["min_value"]),
+        jnp.asarray(p["max_value"]), A=A, tie_jitter=0.0, interpret=True, **kw)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in p.items()}
+    got = mcts_kernels.descend_planar_plain(
+        123, 7, torch.tensor(depth_bound, dtype=torch.int32),
+        *(t[k] for k in SLABS), t["root_legal"].to(torch.int32), t["min_value"],
+        t["max_value"], tie_jitter=tie_jitter, **kw)
+    return got, [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_descend_plain_matches_pallas_interpret(num_players):
+    tree, max_depth, spec = _jax_tree(num_players, seed=num_players)
+    got, want = _descend_both(tree, max_depth + 1, spec)
+    for name, g, w in zip(("parent", "action", "leaf_depth", "path_n", "path_a"), got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert int(got[2].min()) >= 1 and int(got[2].max()) >= 3
+
+
+def test_descend_marks_lanes_cut_by_the_depth_bound():
+    tree, _, spec = _jax_tree(2, seed=5)
+    got, want = _descend_both(tree, 2, spec)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    depth = got[2].numpy()
+    assert (depth == -1).any() and (depth == 2).any()
+
+
+def test_descend_jitter_is_the_philox_stream():
+    """With tie jitter on, the plain descent adds bits * jitter / 2^32 from
+    the Philox stream keyed by (seed; lane, simulation, level, action // 4):
+    it breaks exact ties and leaves clear choices alone."""
+    tree, max_depth, spec = _jax_tree(1, seed=4)
+    plain, _ = _descend_both(tree, max_depth + 1, spec, tie_jitter=0.0)
+    jittered, _ = _descend_both(tree, max_depth + 1, spec, tie_jitter=1e-5)
+    for g, w in zip(jittered, plain):
+        assert torch.equal(g, w)
+    # An all-tied root: every action scores the same, so the jitter decides,
+    # as the argmax of the stream's level-0 words for each lane.
+    p = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in _planar(tree).items()}
+    idx = torch.full_like(p["children_index"], -1)
+    prior = torch.full_like(p["children_prior"], 1.0 / A)
+    zeros_i, zeros_f = torch.zeros_like(p["children_visit"]), torch.zeros_like(p["children_vsum"])
+    legal = torch.ones((B, A), dtype=torch.int32)
+    inf = torch.full((B,), np.inf)
+    out = mcts_kernels.descend_planar_plain(
+        99, 3, torch.tensor(5, dtype=torch.int32), idx, prior, zeros_i, zeros_f, zeros_f,
+        legal, inf, -inf, num_players=1, pb_c_base=19652.0, pb_c_init=1.25,
+        discount=1.0, max_depth=SIMS, tie_jitter=1e-5)
+    bits = philox.jitter_bits(B, A, 3, 1, 99, torch.device("cpu"))[:, 0]
+    assert torch.equal(out[1].long(), torch.argmax(bits, dim=1))
+    assert torch.equal(out[2], torch.ones(B, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_backprop_plain_matches_pallas_interpret(num_players, planar):
+    tree, max_depth, spec = _jax_tree(num_players, seed=10 + num_players)
+    # Real paths: this tree's next descent, one lane cut short (-1).
+    got, _ = _descend_both(tree, max_depth + 1, spec)
+    path_n, path_a, leaf_depth = got[3], got[4], got[2].clone()
+    leaf_depth[3] = -1
+    leaf_value = torch.from_numpy(np.random.default_rng(0).normal(size=B).astype(np.float32))
+    src = _planar(tree) if planar else tree
+    ins = [src[k] for k in ("children_visit", "children_vsum", "children_reward",
+                            "root_visit", "root_vsum", "root_reward", "min_value",
+                            "max_value")]
+    want = mcts_pallas.backprop(
+        jnp.asarray(path_n.numpy()), jnp.asarray(path_a.numpy()),
+        jnp.asarray(leaf_depth.numpy()), jnp.asarray(leaf_value.numpy()),
+        *(jnp.asarray(x) for x in ins), num_players=num_players,
+        discount=spec.discount, interpret=True, planar=planar)
+    t = [torch.from_numpy(np.array(x)) for x in ins]
+    got = mcts_kernels.backprop_plain(
+        path_n, path_a, leaf_depth, leaf_value, *t, num_players=num_players,
+        discount=spec.discount, planar=planar)
+    names = ("children_visit", "children_vsum", "root_visit", "root_vsum", "min_value",
+             "max_value")
+    for name, g, w in zip(names, got, want):
+        if "visit" in name or num_players == 2:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=0,
+                                       err_msg=name)
+    # In place, as the kernel: the returned slabs are the inputs.
+    assert got[0] is t[0] and got[1] is t[1]
+    lanes = leaf_depth >= 0
+    assert torch.equal(t[3] - torch.from_numpy(src["root_visit"]), lanes.to(torch.int32))
+
+
+def test_routing_predicates_are_the_jax_packages():
+    for b, n, a in [(256, 201, 7), (64, 26, 9), (1024, 51, 2), (256, 401, 121),
+                    (8, 401, 121), (96, 801, 7), (512, 201, 7), (33, 51, 3)]:
+        assert mcts_kernels.fits_vmem_planar(b, n, a) == mcts_pallas.fits_vmem_planar(b, n, a)
+        assert mcts_kernels.fits_vmem_backprop(b, n, a) == mcts_pallas.fits_vmem_backprop(b, n, a)
+        assert mcts_kernels.choose_block_planar(b, n, a) == mcts_pallas.choose_block_planar(b, n, a)
+        assert (mcts_kernels.choose_block_backprop(b, n, a)
+                == mcts_pallas.choose_block_backprop(b, n, a))
+    assert mcts_kernels.choose_block_planar(256, 201, 7) is not None  # connect4
+    assert mcts_kernels.choose_block_planar(256, 401, 121) is None  # gomoku
+
+
+def test_wrappers_take_the_plain_version_only_on_cpu():
+    tree, max_depth, spec = _jax_tree(2, seed=6)
+    p = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in _planar(tree).items()}
+    kw = dict(num_players=2, pb_c_base=spec.pb_c_base, pb_c_init=spec.pb_c_init,
+              discount=spec.discount, max_depth=SIMS)
+    args = (torch.tensor(max_depth + 1, dtype=torch.int32), *(p[k] for k in SLABS),
+            p["root_legal"].to(torch.int32), p["min_value"], p["max_value"])
+    before = mcts_kernels.descend_planar.launches
+    got = mcts_kernels.descend_planar(1, 0, *args, **kw)
+    want = mcts_kernels.descend_planar_plain(1, 0, *args, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert mcts_kernels.descend_planar.launches == before  # no kernel ran
+    meta = [t.to("meta") for t in args]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        mcts_kernels.descend_planar(1, 0, *meta, **kw)
+    before = mcts_kernels.backprop.launches
+    mcts_kernels.backprop(got[3], got[4], got[2], torch.zeros(B), p["children_visit"],
+                          p["children_vsum"], p["children_reward"], p["root_visit"],
+                          p["root_vsum"], p["root_reward"], p["min_value"],
+                          p["max_value"], num_players=2, discount=1.0)
+    assert mcts_kernels.backprop.launches == before

@@ -15,9 +15,13 @@ import torch
 
 from muzero_general_tpu.games.cartpole import MuZeroConfig as JaxConfig
 from muzero_general_tpu.games.cartpole import make_env as jax_make_env
+from muzero_general_tpu.games.tictactoe import MuZeroConfig as JaxTicTacToeConfig
+from muzero_general_tpu.games.tictactoe import make_env as jax_tictactoe_env
 from muzero_general_tpu.models import MuZeroNetwork as JaxNetwork
 from muzero_general_tpu.selfplay import SelfPlayDriver as JaxDriver
 from muzero_general_tpu_torch.games.cartpole import MuZeroConfig, make_env
+from muzero_general_tpu_torch.games.tictactoe import MuZeroConfig as TicTacToeConfig
+from muzero_general_tpu_torch.games.tictactoe import make_env as tictactoe_env
 from muzero_general_tpu_torch.models import MuZeroNetwork, params_from_jax
 from muzero_general_tpu_torch.selfplay import SelfPlayDriver
 
@@ -114,21 +118,79 @@ def test_driver_rejects_what_is_not_ported():
     cfg = _config(MuZeroConfig)
     net = MuZeroNetwork(cfg, device="cpu")
     env = make_env(device="cpu")
-    # "auto" runs the fused search on any device; the staged search is not ported.
-    assert SelfPlayDriver(env, net, cfg, device="cpu").fused_spec.num_simulations == 12
+    # FC nets: "auto" runs the fused search on any device, False the staged one.
+    assert SelfPlayDriver(env, net, cfg, device="cpu").use_fused
     cfg.use_fused_search = False
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SelfPlayDriver(env, net, cfg, device="cpu")
+    driver = SelfPlayDriver(env, net, cfg, device="cpu")
+    assert not driver.use_fused and not driver.spec.use_kernels
     cfg.use_fused_search = "auto"
     cfg.use_gumbel_mcts = True
     with pytest.raises(NotImplementedError, match="item 16"):
         SelfPlayDriver(env, net, cfg, device="cpu")
     cfg.use_gumbel_mcts = False
-    cfg.network = "resnet"
-    with pytest.raises(NotImplementedError, match="ResNet"):
+    cfg.search_batch_leaves = 2
+    with pytest.raises(NotImplementedError, match="item 14"):
         SelfPlayDriver(env, net, cfg, device="cpu")
+    cfg.search_batch_leaves = 1
+    cfg.search_bf16_activations = True
     with pytest.raises(NotImplementedError, match="item 12"):
-        MuZeroNetwork(cfg, device="cpu")
+        SelfPlayDriver(env, net, cfg, device="cpu")
+    # Trees the planar kernels cannot take go to the stream kernels in the
+    # JAX package: not ported.
+    gcfg = _config(MuZeroConfig, G=16, sims=400)
+    gcfg.action_space = list(range(121))
+    gcfg.use_pallas_mcts = gcfg.use_stream_mcts = True
+    with pytest.raises(NotImplementedError, match="item 15"):
+        SelfPlayDriver(env, net, gcfg, device="cpu")
+    tcfg = TicTacToeConfig()
+    tcfg.downsample = "resnet"
+    with pytest.raises(NotImplementedError, match="item 12"):
+        MuZeroNetwork(tcfg, device="cpu")
+    tcfg.downsample = False
+    tcfg.compute_dtype = "bfloat16"
+    with pytest.raises(NotImplementedError, match="item 12"):
+        MuZeroNetwork(tcfg, device="cpu")
+
+
+def test_resnet_driver_matches_jax_driver_until_first_done():
+    """Tictactoe with its shipped 1 x 16 ResNet (random init, BN folded on
+    both sides): the staged search's plain-op route against the JAX driver's
+    XLA path, move for move, deterministic ties, temperature 0, no noise.
+    Values to 1e-4: the ResNet's convs sum in another order (tests/
+    test_torch_resnet.py) and the support decode adds its rounding."""
+    G, K = 8, 9
+    jcfg = _config(JaxTicTacToeConfig, G=G, sims=25, K=K)
+    runner = JaxNetwork(jcfg)
+    variables = jax.tree_util.tree_map(np.asarray, runner.init(jax.random.PRNGKey(3)))
+    jd = JaxDriver(jax_tictactoe_env(), runner, jcfg, seed=0)
+    assert not jd.use_fused and not jd.spec.use_pallas and jd.fold_bn
+    jd.spec = jd.spec._replace(deterministic_tie_break=True)
+    jd._build()
+    jd._rng, k = jax.random.split(jd._rng)
+    carry = jd._init_carry(jax.random.split(k, 1))
+    temps = np.zeros((G,), np.float32)
+    _, want = jd._get_play_chunk(K, False)(variables, carry, temps)
+    want = jax.tree_util.tree_map(np.asarray, want)
+
+    cfg = _config(TicTacToeConfig, G=G, sims=25, K=K)
+    net = MuZeroNetwork(cfg, device="cpu")
+    net.load_state_dict(params_from_jax(variables))
+    driver = SelfPlayDriver(tictactoe_env(device="cpu"), net, cfg, seed=0, device="cpu")
+    assert not driver.use_fused and not driver.spec.use_kernels and driver.fold_bn
+    driver.spec = driver.spec._replace(deterministic_tie_break=True)
+    got = driver.play_chunk(torch.from_numpy(temps), K, add_noise=False)
+    got = type(got)(*(f.numpy() for f in got))
+
+    first_done = np.where(want.done.any(0), want.done.argmax(0), K - 1)
+    live = np.arange(K)[:, None] <= first_done[None, :]  # [K, G]
+    assert live.sum() >= 5 * G and want.done.any(0).all()
+    for name in ("done", "action", "child_visits", "reward", "to_play", "to_play_next",
+                 "max_tree_depth", "observation"):
+        np.testing.assert_array_equal(getattr(got, name)[live], getattr(want, name)[live],
+                                      err_msg=name)
+    for name in ("root_value", "pred_value"):
+        np.testing.assert_allclose(getattr(got, name)[live], getattr(want, name)[live],
+                                   atol=1e-4, rtol=0, err_msg=name)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
