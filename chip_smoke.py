@@ -5,9 +5,9 @@
 
 In order, it:
 1. prints the card's name and power limit;
-2. builds every kernel (csrc/mcts_fused.cu and csrc/mcts_kernels.cu) from
-   the checkout, one nvcc each, started together, and prints the build
-   times and ptxas' register/shared-memory report;
+2. builds every kernel (csrc/mcts_fused.cu, csrc/mcts_kernels.cu and
+   csrc/mcts_stream.cu) from the checkout, one nvcc each, started together,
+   and prints the build times and ptxas' register/shared-memory report;
 3. the cartpole path (FC net, the fused-search kernel):
    a. holds the kernel against its plain PyTorch version (search_plain), tie
       jitter 0, in three cases: cartpole with the pretrained weights and
@@ -38,7 +38,25 @@ In order, it:
       equal, root values within 1e-5;
    d. plays 64 games of pretrained MuZero (first to move, temperature 0
       with root noise) against the env's expert: MuZero must win >= 48;
-5. prints one {"kernels": [...]} JSON line, then ends with
+5. the gomoku path (the shipped 6 x 128 ResNet, seeded random weights, f32;
+   the staged search's stream route with the stream descent and edge-update
+   kernels):
+   a. each kernel against its plain version (descend_stream_plain,
+      update_edges_plain) on a real 64-lane packed slab taken after 200 of
+      400 simulations, tie jitter 1e-5: all eight descend outputs equal; the
+      slab's live rows after an update equal, with every 8th lane cut to a
+      depth-1 leaf while the bound stays the deepest lane's, so masked
+      levels (aimed at the dummy row) are exercised;
+   b. runs SelfPlayDriver on gomoku at 64 lanes x 400 simulations, chunks of
+      2 moves; times 3 chunks after a warm-up, the move loop apart from the
+      host's episode cuts; checks the stream route with the BN folded, 400
+      launches of each kernel per move and the visit policies (sum 1, none
+      on an occupied cell); times the network's and the kernels' device work
+      by CUDA graph replay and profiles one move for the card's busy share;
+   c. at the 64 mid-game roots the driver reached, runs the whole
+      400-simulation search on the kernel route and on the plain versions,
+      as in 4c;
+6. prints one {"kernels": [...]} JSON line, then ends with
    {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
@@ -472,9 +490,9 @@ def snapshot_checks(cfg, folded, env):
     }
 
 
-def whole_search_check(driver, folded):
-    """Phase 4c: run_mcts on the kernel route vs the kernels' plain versions
-    at the driver's 256 mid-game roots, same noise and jitter seed."""
+def whole_search_check(driver, folded, game="connect4"):
+    """Phases 4c and 5c: run_mcts on the kernel route vs the kernels' plain
+    versions at the driver's mid-game roots, same noise and jitter seed."""
     from muzero_general_tpu_torch.ops import mcts as mcts_ops
     from muzero_general_tpu_torch.ops.stacking import stack_observations
 
@@ -515,7 +533,7 @@ def whole_search_check(driver, folded):
         fail("whole search: root visits do not sum to the simulation count")
     if bool(visits[~legal].any()):
         fail("whole search: an illegal root action got visits")
-    log(f"[connect4] whole search at the driver's {B} mid-game roots, {spec.num_simulations} "
+    log(f"[{game}] whole search at the driver's {B} mid-game roots, {spec.num_simulations} "
         f"sims, kernels vs their plain versions (jitter seed 777): visits and depth equal, "
         f"max |d root value| {err!r}, max depth {int(k.max_tree_depth.max())}; "
         f"{secs[0] * 1e3:.1f} ms vs {secs[1] * 1e3:.1f} ms (host clock)")
@@ -531,19 +549,25 @@ def profile_move(driver, move_ms):
 
     temps = torch.ones((driver.G,))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # Device activity only: the host ops' events are not needed for the
+    # busy share and would double the trace the profiler parses on exit.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         driver.play_chunk(temps, 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue  # host ops; their kernels are rows of their own
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        rows.append((dev_us, evt.key, evt.count))
+    t_parse = time.perf_counter()
+    # Device time by kernel name, summed over the trace's raw events: the
+    # same sums as key_averages(), whose event objects take tens of seconds
+    # to build for the ~139,000 kernels of a gomoku move.
+    totals = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
+            continue  # runtime calls on the host
+        total = totals.setdefault(evt.name(), [0.0, 0])
+        total[0] += evt.duration_ns() / 1e3
+        total[1] += 1
+    rows = [(dev_us, key, count) for key, (dev_us, count) in totals.items()]
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
         log(f"[profile] one move: {wall_ms:.2f} ms wall (profiled); device time: not "
@@ -553,7 +577,7 @@ def profile_move(driver, move_ms):
     log(f"[profile] one move: {busy_ms:.2f} ms of device kernels ({len(rows)} kernel names, "
         f"{sum(r[2] for r in rows)} launches); {wall_ms:.2f} ms wall profiled; of an "
         f"unprofiled move ({move_ms:.2f} ms) the card is busy {share:.1f}%, idle "
-        f"{100 - share:.1f}%")
+        f"{100 - share:.1f}%; trace read in {time.perf_counter() - t_parse:.1f} s")
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
 
@@ -701,6 +725,254 @@ def connect4_path():
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The gomoku path: the ResNet through the streaming search's two kernels
+# ---------------------------------------------------------------------------
+
+
+def stream_descend_work(lane_levels, B, A, D):
+    """(FLOPs, bytes) one stream descent needs for this data: per level a
+    lane descends (lane_levels in all), the four scored planes of its row
+    over the A real columns and the chosen edge's child, and about 12
+    operations per column plus a log, a sqrt and a few for the node; the
+    root's legal row, the min/max and the bound once, and every output once
+    ([B] x 3, [D, B] x 5)."""
+    flops = lane_levels * (12 * A + 8)
+    nbytes = lane_levels * 4 * (4 * A + 1) + 4 * (B * A + 2 * B + 1) + 4 * (3 * B + 5 * D * B)
+    return flops, nbytes
+
+
+def update_work(upd_depth, bound, B):
+    """(FLOPs, bytes) one edge update needs for this data: the bound, each
+    lane's mask below it, and per live (lane, level) its node, action and
+    delta read and two floats read, added to and written back."""
+    live = int(upd_depth.clamp(min=0).sum())
+    return 2 * live, 4 + 4 * bound * B + live * (3 * 4 + 4 * 4)
+
+
+def stream_snapshot_checks(cfg, folded, env):
+    """Phase 5a: each stream kernel vs its plain version on a real 64-lane
+    slab after 200 of 400 simulations. Returns per-kernel numbers."""
+    from muzero_general_tpu_torch.ops import mcts as mcts_ops
+    from muzero_general_tpu_torch.ops import mcts_stream
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    B, A, D = cfg.parallel_games, len(cfg.action_space), cfg.num_simulations + 1
+    spec = mcts_ops.SearchSpec.from_config(cfg, B, dev)
+    if not spec.use_stream:
+        fail("gomoku at 64 lanes did not take the stream route")
+    state = random_positions(env, B, 10, gen)
+    obs, legal, to_play = env.observation(state), env.legal_actions_mask(state), env.to_play(state)
+    sim, seed = cfg.num_simulations // 2, 4242
+    with torch.no_grad():
+        out = mcts_ops.run_mcts(folded.initial_inference, folded.recurrent_inference, obs,
+                                legal, to_play, gen, spec, seed=seed, num_steps=sim)
+    tree = out.tree
+    edges = mcts_stream.pack_tree(tree, A)
+    depth_bound = (out.max_tree_depth.max() + 1).to(torch.int32)
+    legal_i32 = legal.to(torch.int32).contiguous()
+    dargs = (seed, sim, depth_bound, edges, legal_i32, tree.min_value, tree.max_value)
+    dkw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+               pb_c_init=spec.pb_c_init, discount=spec.discount, A=A,
+               max_depth=spec.max_depth, tie_jitter=spec.tie_jitter)
+    got = mcts_stream.descend_stream(*dargs, **dkw)
+    want = mcts_stream.descend_stream_plain(*dargs, **dkw)
+    torch.cuda.synchronize()
+    names = ("parent", "action", "leaf_depth", "path_n", "path_a", "path_reward",
+             "path_visit", "path_vsum")
+    d_err = 0.0
+    for name, g, w in zip(names, [*got[:5], *got[5]], [*want[:5], *want[5]]):
+        d_err = max(d_err, float((g.double() - w.double()).abs().max()))
+        if not torch.equal(g, w):
+            bad = (g != w).reshape(-1, B).any(0).nonzero()
+            fail(f"descend_stream: kernel and plain differ in {name} at lane {int(bad[0])}")
+    leaf_depth = got[2]
+    if bool((leaf_depth < 1).any()):
+        fail("descend_stream: a lane was cut by the depth bound")
+    lane_levels = int(leaf_depth.sum())  # a lane descends one level per unit of leaf depth
+    log(f"[gomoku] descend_stream vs plain at a {B}-lane slab after {sim} sims, tie jitter "
+        f"{spec.tie_jitter!r}: all eight outputs equal (max |d| {d_err!r}); leaf depths "
+        f"{int(leaf_depth.min())}-{int(leaf_depth.max())}, depth bound {int(depth_bound)}, "
+        f"{lane_levels} lane-levels")
+
+    # The update on this descent's paths, as backprop_stream hands them over,
+    # with every 8th lane cut to a depth-1 leaf under the deepest lane's bound.
+    upd_depth = leaf_depth.clone()
+    upd_depth[::8] = 1
+    t_idx = torch.arange(D, device=dev)[:, None]
+    mask = t_idx < upd_depth[None, :].long()
+    delta = torch.randn((D, B), generator=gen, device=dev) * mask
+    pn = torch.where(mask, got[3], edges.shape[1] - 1)
+    pa = torch.where(mask, got[4], 0)
+    mask = mask.to(torch.float32)
+    bound = torch.amax(upd_depth)
+    k_edges = mcts_stream.update_edges(edges.clone(), pn, pa, delta, mask, bound)
+    p_edges = mcts_stream.update_edges_plain(edges.clone(), pn, pa, delta, mask, bound)
+    torch.cuda.synchronize()
+    live = slice(0, edges.shape[1] - 1)
+    u_err = float((k_edges[:, live] - p_edges[:, live]).abs().max())
+    if not torch.equal(k_edges[:, live], p_edges[:, live]):
+        fail(f"update_edges: kernel and plain differ on live rows (max |d| {u_err!r})")
+    added = int((k_edges[:, live, 0] - edges[:, live, 0]).sum())
+    if added != int(upd_depth.sum()):
+        fail(f"update_edges: {added} visits added, live levels {int(upd_depth.sum())}")
+    log(f"[gomoku] update_edges vs plain on those paths ({int((upd_depth == 1).sum())} "
+        f"depth-1 lanes under bound {int(bound)}): live rows equal (max |d| {u_err!r}); "
+        f"{added} edge visits added")
+
+    def descend():
+        return mcts_stream.descend_stream(*dargs, **dkw)
+
+    w_edges = edges.clone()
+
+    def update():
+        return mcts_stream.update_edges(w_edges, pn, pa, delta, mask, bound)
+
+    with torch.no_grad():
+        d_call = cuda_ms(descend, 50)
+        d_ms = graph_ms(descend, 50)
+        mcts_stream.descend_stream_plain(*dargs, **dkw)
+        d_plain = cuda_ms(lambda: mcts_stream.descend_stream_plain(*dargs, **dkw), 1)
+        u_call = cuda_ms(update, 50)
+        u_ms = graph_ms(update, 50)
+        u_plain = cuda_ms(
+            lambda: mcts_stream.update_edges_plain(w_edges, pn, pa, delta, mask, bound), 1)
+    d_bound, d_by = bound_ms(*stream_descend_work(lane_levels, B, A, D))
+    u_bound, u_by = bound_ms(*update_work(upd_depth, int(bound), B))
+    for name, ms, call, plain, bnd, by in (("descend_stream", d_ms, d_call, d_plain, d_bound,
+                                            d_by),
+                                           ("update_edges", u_ms, u_call, u_plain, u_bound,
+                                            u_by)):
+        log(f"[gomoku] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches), "
+            f"{call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
+            f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    return {
+        "descend_stream": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain, bound_ms=d_bound,
+                               bound_by=d_by, max_abs_err=d_err),
+        "update_edges": dict(ms=u_ms, call_ms=u_call, plain_ms=u_plain, bound_ms=u_bound,
+                             bound_by=u_by, max_abs_err=u_err),
+    }
+
+
+def gomoku_path():
+    """Phases 5a-5c; returns the two stream kernels' entries of the kernels
+    line."""
+    from muzero_general_tpu_torch.games.gomoku import MuZeroConfig, make_env
+    from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
+    from muzero_general_tpu_torch.ops import mcts_stream
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+
+    t_path = time.perf_counter()
+    cfg = MuZeroConfig()
+    cfg.parallel_games = 64
+    cfg.selfplay_chunk_moves = 2
+    net = MuZeroNetwork(cfg, seed=0)  # no gomoku checkpoint ships: seeded random init
+    folded = fold_bn(net)
+    env = make_env()
+    kernels = stream_snapshot_checks(cfg, folded, env)
+    log(f"[gomoku] snapshot checks done after {time.perf_counter() - t_path:.1f} s")
+
+    # ---- 5b. the main path -----------------------------------------------
+    driver = SelfPlayDriver(env, net, cfg, seed=0)
+    spec = driver.spec
+    if driver.use_fused or spec.use_kernels or not spec.use_stream or not driver.fold_bn:
+        fail("gomoku: the driver did not route to the stream kernels with the BN folded")
+    K, reps, S = cfg.selfplay_chunk_moves, 3, cfg.num_simulations
+    chunk_times, records = [], []
+    play_chunk = driver.play_chunk
+
+    def timed_play_chunk(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = play_chunk(*args, **kwargs)
+        torch.cuda.synchronize()
+        chunk_times.append(time.perf_counter() - t)
+        records.append(out)
+        return out
+
+    driver.play_chunk = timed_play_chunk
+    mcts_stream.descend_stream.launches = 0
+    mcts_stream.update_edges.launches = 0
+    driver.play(temperature=1.0)  # warm-up
+    chunk_times.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, stats = driver.play(temperature=1.0)
+    torch.cuda.synchronize()
+    chunk_s = (time.perf_counter() - t0) / reps
+    launches = {"descend_stream": mcts_stream.descend_stream.launches,
+                "update_edges": mcts_stream.update_edges.launches}
+    del driver.play_chunk
+    moves = (reps + 1) * K
+    for name, count in launches.items():
+        if count != S * moves:
+            fail(f"gomoku main path: {name} launched {count} times for {moves} moves "
+                 f"x {S} sims")
+    for rec in records:
+        occupied = rec.observation[:, :, :2].sum(2).reshape(K, driver.G, -1) > 0
+        policy = rec.child_visits
+        if not bool(((policy.sum(-1) - 1).abs() < 1e-5).all()):
+            fail("gomoku main path: a visit policy does not sum to 1")
+        if bool((policy[occupied] != 0).any()):
+            fail("gomoku main path: an occupied cell got visits")
+    log(f"[gomoku] SelfPlayDriver.play: {driver.G} lanes x {S} sims, {K} moves/chunk, "
+        f"6x128 ResNet (seeded random init, f32, BN folded), stream route: "
+        f"{chunk_s * 1e3:.2f} ms/chunk, {stats['env_steps'] / chunk_s:.2f} env-steps/s, "
+        f"launches {launches} = {S} x {moves} moves, max tree depth "
+        f"{stats['max_tree_depth']}")
+    loop_ms = sum(chunk_times) * 1e3 / (reps * K)
+    move_ms = chunk_s * 1e3 / K
+
+    with torch.no_grad():
+        obs = driver.env.observation(driver._carry.env_state)
+        hidden = folded.initial_inference(obs)[3]
+        action = torch.zeros((driver.G,), dtype=torch.long, device=hidden.device)
+
+        def recurrent():
+            return folded.recurrent_inference(hidden, action)
+
+        rec_call = cuda_ms(recurrent, 10)
+        rec_ms = graph_ms(recurrent, 10)
+        init_ms = graph_ms(lambda: folded.initial_inference(obs), 3)
+    dev_net = S * rec_ms + init_ms
+    dev_kern = S * (kernels["descend_stream"]["ms"] + kernels["update_edges"]["ms"])
+    log(f"[gomoku] per move: {move_ms:.3f} ms = move loop {loop_ms:.3f} + host episode "
+        f"cuts {move_ms - loop_ms:.3f}. Device work in the loop: network {dev_net:.3f} "
+        f"({S} x {rec_ms:.4f} recurrent + {init_ms:.4f} initial, graph replay; "
+        f"{rec_call:.4f} ms per recurrent call from Python) + stream kernels {dev_kern:.3f} "
+        f"({S} x (descend {kernels['descend_stream']['ms']:.4f} + update "
+        f"{kernels['update_edges']['ms']:.4f}), at the snapshot); the other "
+        f"{loop_ms - dev_net - dev_kern:.3f} ms is host time the card waits on and small ops")
+    log(f"[gomoku] main path done after {time.perf_counter() - t_path:.1f} s")
+    profile_move(driver, loop_ms)
+    log(f"[gomoku] profile done after {time.perf_counter() - t_path:.1f} s")
+
+    # ---- 5c. ---------------------------------------------------------------
+    whole_search_check(driver, folded, "gomoku")
+
+    entries = []
+    for name, replaces in (("descend_stream", "muzero_general_tpu/ops/mcts_stream.py:45"),
+                           ("update_edges", "muzero_general_tpu/ops/mcts_stream.py:284")):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": CSRC + "mcts_stream.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "visits_exact": True,  # the checks failed the run otherwise
+            "max_abs_err": kernels[name]["max_abs_err"],
+            "ms": kernels[name]["ms"],
+            "call_ms": kernels[name]["call_ms"],
+            "plain_ms": kernels[name]["plain_ms"],
+            "bound_ms": kernels[name]["bound_ms"],
+            "bound_by": kernels[name]["bound_by"],
+            "library_ms": None,  # no single PyTorch call descends a tree or runs this update
+        })
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -716,11 +988,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[device] torch: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 2.-4. ----------------------------------------------------------
+    # ---- 2.-5. ----------------------------------------------------------
     build_kernels()
     kernels = [cartpole_path()]
     log(f"[done] cartpole path after {time.perf_counter() - t_start:.1f} s")
     kernels += connect4_path()
+    log(f"[done] connect4 path after {time.perf_counter() - t_start:.1f} s")
+    kernels += gomoku_path()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

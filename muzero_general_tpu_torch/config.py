@@ -136,9 +136,11 @@ class MuZeroConfig:
         # Accepted, unused: the port's kernel always computes in float32
         # (what "highest" means on the TPU).
         self.fused_net_precision = "highest"
-        # Read: where it resolves (as in the JAX package) for a tree the
-        # planar kernels cannot take, SearchSpec.from_config raises
-        # NotImplementedError: the stream kernels are ROADMAP kernels 4-5.
+        # Used: the streaming search's CUDA kernels (ops/mcts_stream.py)
+        # for trees the planar kernels cannot take, at 8 lanes or more (as
+        # in the JAX package); "auto" engages them on a CUDA device, True
+        # also on the CPU (through their plain versions) when
+        # use_pallas_mcts resolves too.
         self.use_stream_mcts = "auto"
         # Read: values above 1 raise NotImplementedError (multi-leaf search,
         # ROADMAP module item 14).

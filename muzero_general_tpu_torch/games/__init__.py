@@ -7,5 +7,6 @@ ported are listed (the rest are ROADMAP module item 13).
 AVAILABLE_GAMES = [
     "cartpole",
     "connect4",
+    "gomoku",
     "tictactoe",
 ]

@@ -66,6 +66,26 @@ _KERNELS = {
             "mcts_kernels_error_string": (ctypes.c_char_p, [ctypes.c_int]),
         },
     },
+    "mcts_stream": {
+        # The streaming search's descent and edge updates: no FMA
+        # contraction, so they match their plain versions
+        # (ops/mcts_stream.py) bit for bit.
+        "flags": ["--fmad=false"],
+        "api": {
+            "mcts_stream_descend": (
+                ctypes.c_int,
+                [ctypes.c_void_p] * 13
+                + [ctypes.c_int] * 6
+                + [ctypes.c_float] * 4
+                + [ctypes.c_ulonglong, ctypes.c_void_p],
+            ),
+            "mcts_stream_update": (
+                ctypes.c_int,
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+            ),
+            "mcts_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        },
+    },
 }
 
 _loaded = {}

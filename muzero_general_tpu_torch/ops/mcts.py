@@ -14,13 +14,18 @@ player at depth t is (root player + t) % players, so backprop signs are depth
 parity. Each simulation expands one node, so S simulations need N = S + 1
 slots; the root is node 0.
 
-Two routes per simulation, chosen by SearchSpec.use_kernels (config
-`use_pallas_mcts`), as the JAX package chooses between XLA and its Pallas
-kernels:
+Three routes per simulation, chosen by SearchSpec.use_kernels and
+use_stream (config `use_pallas_mcts`, `use_stream_mcts`), as the JAX package
+chooses between XLA, its planar Pallas kernels and its streaming ones:
 - the kernel route: the planar descent and the leaf-to-root backprop are one
   CUDA kernel launch each (ops/mcts_kernels.py, csrc/mcts_kernels.cu), with
   the depth bound passed as a device scalar so the simulation loop never
   waits on the host;
+- the stream route, for trees too big for the planar kernels (gomoku): the
+  tree is one packed slab per move, the descent and the backprop's edge
+  updates are one CUDA kernel launch each (ops/mcts_stream.py,
+  csrc/mcts_stream.cu), and the backprop's fold runs as PyTorch ops over the
+  depth-major path, with the bounds again device scalars;
 - the plain-op route: the descent in PyTorch ops level by level, and the
   backprop as one reverse associative scan over the path
   (_backprop_vectorized), as the JAX package's XLA path.
@@ -30,8 +35,7 @@ leaf's store write to the next simulation (`_flush_pending`), only to keep
 XLA from copying the store; here each leaf's row is written in place at once.
 The results are the same: node s+1 is reachable only from simulation s+1 on.
 
-Not ported: multi-leaf rounds (ROADMAP module item 14) and the streaming
-kernels for trees too big for the planar ones (kernels 4-5, item 15);
+Not ported: multi-leaf rounds (ROADMAP module item 14);
 SearchSpec.from_config raises NotImplementedError where the JAX package
 would take them.
 """
@@ -76,6 +80,9 @@ class SearchSpec(NamedTuple):
     # visit, vsum) so the backprop needs no slab gathers; off above 256
     # simulations, as in the JAX package.
     capture_path_stats: bool = True
+    # The stream kernels on the packed slab (config use_stream_mcts), for
+    # trees the planar kernels refuse, where the JAX package streams them.
+    use_stream: bool = False
 
     @property
     def tie_jitter(self) -> float:
@@ -86,11 +93,12 @@ class SearchSpec(NamedTuple):
     def from_config(cls, config, batch_size=None, device="cpu"):
         """The JAX package's SearchSpec.from_config: the kernel route where
         `use_pallas_mcts` resolves on `device` and the tree fits the JAX
-        package's planar and backprop kernels at `batch_size` lanes.
+        package's planar and backprop kernels at `batch_size` lanes; else,
+        for batch_size >= 8 where `use_stream_mcts` resolves too, the stream
+        route.
 
-        Raises NotImplementedError where the JAX package would run what is
-        not ported: multi-leaf rounds (search_batch_leaves > 1) and the
-        streaming kernels (trees too big for the planar ones)."""
+        Raises NotImplementedError for multi-leaf rounds
+        (search_batch_leaves > 1), which are not ported."""
         if len(config.players) > 2:
             raise NotImplementedError("More than two player mode not implemented.")
         batch_leaves = int(getattr(config, "search_batch_leaves", 1))
@@ -107,6 +115,7 @@ class SearchSpec(NamedTuple):
         use_kernels = resolve_fast_path_flag(
             getattr(config, "use_pallas_mcts", False), device
         )
+        use_stream = False
         if use_kernels and batch_size is not None:
             N = config.num_simulations + 1
             A = len(config.action_space)
@@ -114,14 +123,11 @@ class SearchSpec(NamedTuple):
                 mcts_kernels.choose_block_planar(batch_size, N, A) is not None
                 and mcts_kernels.choose_block_backprop(batch_size, N, A) is not None
             )
-            if not use_kernels and batch_size >= 8 and resolve_fast_path_flag(
+            # Trees too big for the planar kernels stream instead (K = 1
+            # only; batch-1 eval lanes keep the plain-op route, as in JAX).
+            use_stream = not use_kernels and batch_size >= 8 and resolve_fast_path_flag(
                 getattr(config, "use_stream_mcts", "auto"), device
-            ):
-                raise NotImplementedError(
-                    f"a tree of {N} nodes x {A} actions at {batch_size} lanes "
-                    "takes the streaming search kernels, not ported yet "
-                    "(ROADMAP kernels 4-5, module item 15)"
-                )
+            )
         return cls(
             num_simulations=config.num_simulations,
             num_players=len(config.players),
@@ -134,6 +140,7 @@ class SearchSpec(NamedTuple):
             max_depth=config.num_simulations,
             use_kernels=use_kernels,
             capture_path_stats=config.num_simulations <= 256,
+            use_stream=use_stream,
         )
 
 
@@ -624,6 +631,51 @@ def _backprop_vectorized(tree: Tree, path_nodes, path_actions, leaf_depth,
     torch.maximum(tree.max_value, stat_max, out=tree.max_value)
 
 
+def _run_stream(tree: Tree, hidden, max_depth, spec: SearchSpec, recurrent_fn, steps: int,
+                seed: int, legal_i32, plain_kernels: bool):
+    """The stream route's simulations (JAX ops/mcts.py:1077-1152): the tree
+    packed into one slab for the move, then per simulation the stream
+    descent, the parent's hidden row, one recurrent inference, the expansion
+    writes on the slab, the leaf edge's reward patched into the captured
+    path stats, and the depth-major backprop. Returns (node-major tree,
+    max_depth [B])."""
+    # Imported here: ops/mcts_stream.py builds on this module's scan.
+    from muzero_general_tpu_torch.ops import mcts_stream
+
+    B, A = tree.root_legal.shape
+    dev = hidden.device
+    b_idx = torch.arange(B, device=dev)
+    if plain_kernels:
+        descend = mcts_stream.descend_stream_plain
+    else:
+        descend = mcts_stream.descend_stream
+    edges = mcts_stream.pack_tree(tree, A)
+    for sim in range(steps):
+        depth_bound = torch.amax(max_depth) + 1  # stays on the device
+        parent, action, leaf_depth, path_n, path_a, path_stats = descend(
+            seed, sim, depth_bound, edges, legal_i32, tree.min_value, tree.max_value,
+            num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+            pb_c_init=spec.pb_c_init, discount=spec.discount, A=A,
+            max_depth=spec.max_depth, tie_jitter=spec.tie_jitter,
+        )
+        new_node = sim + 1
+        value_logits, reward_logits, policy_logits, hidden_leaf = recurrent_fn(
+            hidden[parent.long(), b_idx], action.long()
+        )
+        leaf_value = support_to_scalar(value_logits, spec.support_size)
+        leaf_reward = support_to_scalar(reward_logits, spec.support_size)
+        hidden[new_node] = hidden_leaf
+        mcts_stream.expand_packed(edges, parent, action, new_node, leaf_reward,
+                                  torch.softmax(policy_logits, dim=-1), A)
+        # The leaf edge's reward was 0 at descent time (unexpanded): patch
+        # the decoded one in. The path arrays stay depth-major [D, B].
+        path_stats[0][leaf_depth.long() - 1, b_idx] = leaf_reward
+        mcts_stream.backprop_stream(tree, edges, path_n, path_a, leaf_depth, leaf_value,
+                                    path_stats, spec, plain_kernels=plain_kernels)
+        max_depth = torch.maximum(max_depth, leaf_depth)
+    return mcts_stream.unpack_tree(tree, edges, A), max_depth
+
+
 def run_mcts(
     initial_fn,
     recurrent_fn,
@@ -647,10 +699,11 @@ def run_mcts(
     root actions; to_play [B] int32. root_outputs: a precomputed
     initial_fn result to seed the root. root_noise [B, A]: the Gamma draws
     of the Dirichlet noise (default: drawn from `generator`). seed: the
-    kernel route's tie-jitter key (default: drawn from `generator`).
+    kernel and stream routes' tie-jitter key (default: drawn from
+    `generator`).
     num_steps: stop after that many of the spec's simulations (a mid-search
-    tree). plain_kernels: the kernel route runs the kernels' plain versions
-    (the card comparisons).
+    tree). plain_kernels: the kernel and stream routes run the kernels'
+    plain versions (the card comparisons).
     """
     B, A = legal_mask.shape
     N = spec.num_simulations + 1
@@ -668,28 +721,33 @@ def run_mcts(
 
     tree = init_tree(N, prior, legal_mask, to_play, root_reward)
     legal_i32 = None
-    if spec.use_kernels:
-        tree = _to_planar(tree)
+    if spec.use_kernels or spec.use_stream:
         legal_i32 = legal_mask.to(torch.int32).contiguous()
         if seed is None:
             seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                      device=dev))
+    if spec.use_kernels:
+        tree = _to_planar(tree)
     # Rows are written before they are read (node s+1 at simulation s).
     hidden = torch.empty((N,) + tuple(hidden0.shape), dtype=hidden0.dtype, device=dev)
     hidden[0] = hidden0
     max_depth = torch.zeros((B,), dtype=torch.int32, device=dev)
     steps = spec.num_simulations if num_steps is None else num_steps
-    for sim in range(steps):
-        # A descent goes at most one edge below the deepest existing node;
-        # the bound stays on the device.
-        depth_bound = torch.amax(max_depth) + 1
-        s = _select_leaf(tree, generator, spec, depth_bound, sim, seed,
-                         legal_i32, plain_kernels)
-        leaf_depth = _expand_and_backprop(tree, hidden, sim, spec, recurrent_fn,
-                                          s, plain_kernels)
-        # Edges descended including the final one to the new node, as the
-        # reference's current_tree_depth (self_play.py:319-355).
-        max_depth = torch.maximum(max_depth, leaf_depth)
+    if spec.use_stream:
+        tree, max_depth = _run_stream(tree, hidden, max_depth, spec, recurrent_fn, steps,
+                                      seed, legal_i32, plain_kernels)
+    else:
+        for sim in range(steps):
+            # A descent goes at most one edge below the deepest existing
+            # node; the bound stays on the device.
+            depth_bound = torch.amax(max_depth) + 1
+            s = _select_leaf(tree, generator, spec, depth_bound, sim, seed,
+                             legal_i32, plain_kernels)
+            leaf_depth = _expand_and_backprop(tree, hidden, sim, spec, recurrent_fn,
+                                              s, plain_kernels)
+            # Edges descended including the final one to the new node, as
+            # the reference's current_tree_depth (self_play.py:319-355).
+            max_depth = torch.maximum(max_depth, leaf_depth)
     if spec.use_kernels:
         tree = _from_planar(tree)
 

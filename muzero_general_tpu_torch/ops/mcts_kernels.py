@@ -20,10 +20,10 @@ Routing: `fits_vmem_planar`/`choose_block_planar` and
 `fits_vmem_backprop`/`choose_block_backprop` are copies of the JAX
 package's predicates (mcts_pallas.py:643-709), so SearchSpec.from_config
 takes the kernel route for exactly the configurations where the JAX package
-does; gomoku-class trees fall outside it (their stream kernels are ROADMAP
-kernels 4-5). The JAX package's MUZERO_PALLAS_VMEM_BUDGET override tunes a
-TPU's VMEM and means nothing on the card, so the budget here is the JAX
-default, fixed.
+does; gomoku-class trees fall outside it and take the stream kernels
+(ops/mcts_stream.py). The JAX package's MUZERO_PALLAS_VMEM_BUDGET override
+tunes a TPU's VMEM and means nothing on the card, so the budget here is the
+JAX default, fixed.
 
 Tie jitter: the JAX kernels add bits * tie_jitter / 2^32 from the TPU's
 PRNG; the CUDA descent draws the bits from a Philox4x32-10 stream keyed by
@@ -246,9 +246,11 @@ def _route(name, device):
     return device.type
 
 
-def _raise_on(rc, lib, fn):
+def _raise_on(rc, error_string, fn):
+    """Raise if a kernel library's C function `fn` returned a CUDA error;
+    error_string: that library's code -> message function."""
     if rc != 0:
-        raise RuntimeError(f"{fn} failed ({rc}): {lib.mcts_kernels_error_string(rc).decode()}")
+        raise RuntimeError(f"{fn} failed ({rc}): {error_string(rc).decode()}")
 
 
 def descend_planar(seed, sim, depth_bound, children_index, children_prior,
@@ -301,7 +303,7 @@ def descend_planar(seed, sim, depth_bound, children_index, children_prior,
             B, A, N, D, int(sim), pb_c_base, pb_c_init, disc_sign,
             tie_jitter / U32_RANGE, int(seed) & 0xFFFFFFFFFFFFFFFF, stream,
         )
-    _raise_on(rc, lib, "mcts_descend_planar")
+    _raise_on(rc, lib.mcts_kernels_error_string, "mcts_descend_planar")
     descend_planar.launches += 1
     return parent, action, leaf_depth, path_n, path_a
 
@@ -351,7 +353,7 @@ def backprop(path_nodes, path_actions, leaf_depth, leaf_value, children_visit,
             *(t.data_ptr() for t in args), B, D, slab[1] * slab[2], stride_n, stride_a,
             num_players, discount, disc_sign, stream,
         )
-    _raise_on(rc, lib, "mcts_backprop")
+    _raise_on(rc, lib.mcts_kernels_error_string, "mcts_backprop")
     backprop.launches += 1
     return children_visit, children_vsum, root_visit, root_vsum, min_value, max_value
 

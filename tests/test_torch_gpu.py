@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-fused search (ops/mcts_fused.py) and the staged search's planar descent and
-backprop (ops/mcts_kernels.py).
+fused search (ops/mcts_fused.py), the staged search's planar descent and
+backprop (ops/mcts_kernels.py) and the streaming search's descent and edge
+updates (ops/mcts_stream.py).
 
 Every test here carries the `gpu` marker and skips without a CUDA card. The
 file imports no JAX, so it also runs where JAX is absent; there the suite's
@@ -11,18 +12,19 @@ conftest (which imports JAX) is left out:
 Kernel and plain version get the same card tensors and run the same float32
 operations in the same order, with the same Philox tie jitter when it is on,
 so visit counts and depth must be equal and root values agree to 1e-5; the
-tree kernels' outputs (paths, visits, value sums, min/max) are equal.
+tree kernels' outputs (paths, visits, value sums, min/max) are equal, and so
+are the stream kernels' (every descend output, every live slab row).
 """
 
 import pytest
 import torch
 
 from muzero_general_tpu_torch.config import MuZeroConfig as BaseConfig
-from muzero_general_tpu_torch.games import connect4
+from muzero_general_tpu_torch.games import connect4, gomoku
 from muzero_general_tpu_torch.games.cartpole import MuZeroConfig, make_env
 from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
-from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
+from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels, mcts_stream
 from muzero_general_tpu_torch.selfplay import SelfPlayDriver
 
 pytestmark = pytest.mark.gpu
@@ -275,3 +277,146 @@ def test_connect4_selfplay_runs_through_the_tree_kernels(cuda):
     after = (mcts_kernels.descend_planar.launches, mcts_kernels.backprop.launches)
     assert after == (before[0] + 60, before[1] + 60)
     assert stats["env_steps"] == 48 and stats["max_tree_depth"] >= 2
+
+
+# ---- the streaming search's kernels ----------------------------------------
+
+
+def _slab(dev, num_players, B=64, sims=60, seed=0):
+    """A real gomoku-shaped packed slab (1 x 16 ResNet, random init) after
+    `sims` of 2 * sims simulations on the stream route, with its spec,
+    int32 legal mask, min/max and depth bound."""
+    cfg = gomoku.MuZeroConfig()
+    cfg.blocks, cfg.channels = 1, 16
+    cfg.num_simulations = 2 * sims
+    cfg.players = list(range(num_players))
+    net = fold_bn(MuZeroNetwork(cfg, device=dev, seed=seed))
+    env = gomoku.make_env(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = env.reset(B, gen)
+    for _ in range(6):
+        state, _, _ = env.step(state, env.random_legal_action(state, gen), gen)
+    spec = mcts_ops.SearchSpec.from_config(cfg, B, dev)._replace(use_kernels=False,
+                                                                 use_stream=True)
+    legal = env.legal_actions_mask(state)
+    with torch.no_grad():
+        out = mcts_ops.run_mcts(net.initial_inference, net.recurrent_inference,
+                                env.observation(state), legal, env.to_play(state), gen,
+                                spec, seed=seed, num_steps=sims)
+    bound = (out.max_tree_depth.max() + 1).to(torch.int32)
+    edges = mcts_stream.pack_tree(out.tree, legal.shape[1])
+    return edges, out.tree, spec, legal.to(torch.int32), bound, sims
+
+
+def _stream_args(edges, tree, spec, legal, bound, sim, seed, tie_jitter):
+    args = (seed, sim, bound, edges, legal, tree.min_value, tree.max_value)
+    kw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+              pb_c_init=spec.pb_c_init, discount=spec.discount, A=legal.shape[1],
+              max_depth=spec.max_depth, tie_jitter=tie_jitter)
+    return args, kw
+
+
+def _flat(out):
+    return [*out[:5], *out[5]]
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_stream_descend_kernel_matches_plain(cuda, num_players, tie_jitter):
+    edges, tree, spec, legal, bound, sim = _slab(cuda, num_players)
+    args, kw = _stream_args(edges, tree, spec, legal, bound, sim, (1 << 33) + 9, tie_jitter)
+    before = mcts_stream.descend_stream.launches
+    got = mcts_stream.descend_stream(*args, **kw)
+    want = mcts_stream.descend_stream_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert mcts_stream.descend_stream.launches == before + 1
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+    assert int(got[2].min()) >= 1 and got[3].shape == (spec.max_depth + 1, 64)
+    # A bound too small for the tree marks the cut lanes -1, as the plain one.
+    args = args[:2] + (torch.tensor(1, dtype=torch.int32, device=cuda),) + args[3:]
+    got = mcts_stream.descend_stream(*args, **kw)
+    want = mcts_stream.descend_stream_plain(*args, **kw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+    assert bool((got[2] == -1).any())
+
+
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_stream_descend_kernel_breaks_exact_ties_as_plain(cuda, tie_jitter):
+    """Fresh roots whose legal actions all score the same, A = 121 over the
+    128 padded columns: without jitter the first legal index wins, with it
+    the Philox stream decides; the kernel picks as the plain version."""
+    B, N, A = 96, 9, 121
+    edges = torch.zeros((B, N + 1, mcts_stream.S_PLANES, 128), device=cuda)
+    edges[:, :N, mcts_stream.P_CHILD] = -1.0
+    edges[:, :N, mcts_stream.P_PRIOR, :A] = 1.0 / A
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    legal = (torch.rand((B, A), generator=gen, device=cuda) < 0.3).to(torch.int32)
+    legal[:, A - 1] = 1
+    inf = torch.full((B,), float("inf"), device=cuda)
+    args = (7, 2, torch.tensor(3, dtype=torch.int32, device=cuda), edges, legal, inf, -inf)
+    kw = dict(num_players=2, pb_c_base=19652.0, pb_c_init=1.25, discount=1.0, A=A,
+              max_depth=N - 1, tie_jitter=tie_jitter)
+    got = mcts_stream.descend_stream(*args, **kw)
+    want = mcts_stream.descend_stream_plain(*args, **kw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g, w)
+    if tie_jitter == 0.0:
+        assert torch.equal(got[1].long(), torch.argmax(legal, dim=1))
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_update_edges_kernel_matches_plain(cuda, num_players):
+    """Real paths with some lanes cut to depth 1 while the bound stays the
+    deepest lane's: masked levels aim at the dummy row, as backprop_stream
+    aims them. Every live row equal; each live level adds one visit."""
+    edges, tree, spec, legal, bound, sim = _slab(cuda, num_players, seed=1)
+    args, kw = _stream_args(edges, tree, spec, legal, bound, sim, 5, 1e-5)
+    _, _, leaf_depth, path_n, path_a, _ = mcts_stream.descend_stream(*args, **kw)
+    leaf_depth[::5] = 1
+    D, B = path_n.shape
+    mask = torch.arange(D, device=cuda)[:, None] < leaf_depth[None, :].long()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    delta = torch.randn((D, B), generator=gen, device=cuda) * mask
+    pn = torch.where(mask, path_n, edges.shape[1] - 1)
+    pa = torch.where(mask, path_a, 0)
+    top = torch.amax(leaf_depth)
+    assert int(top) > 1
+    outs = []
+    for fn in (mcts_stream.update_edges, mcts_stream.update_edges_plain):
+        outs.append(fn(edges.clone(), pn, pa, delta, mask.to(torch.float32), top))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][:, :-1], outs[1][:, :-1])
+    visits = outs[0][:, :-1, mcts_stream.P_VISIT] - edges[:, :-1, mcts_stream.P_VISIT]
+    assert int(visits.sum()) == int(leaf_depth.sum())
+
+
+def test_stream_kernels_reject_bad_inputs(cuda):
+    edges, tree, spec, legal, bound, sim = _slab(cuda, 2, B=8, sims=6)
+    args, kw = _stream_args(edges, tree, spec, legal, bound, sim, 0, 0.0)
+    with pytest.raises(ValueError, match="dtype"):
+        mcts_stream.descend_stream(*args[:4], legal.bool(), *args[5:], **kw)
+    with pytest.raises(ValueError, match="depth_bound"):
+        mcts_stream.descend_stream(*args[:2], int(bound), *args[3:], **kw)
+    with pytest.raises(ValueError, match="edges"):
+        mcts_stream.descend_stream(*args[:3], edges[:, :, :5], *args[4:], **kw)
+    _, _, depth, path_n, path_a, _ = mcts_stream.descend_stream(*args, **kw)
+    zeros = torch.zeros(path_n.shape, device=cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        mcts_stream.update_edges(edges, path_n.cpu(), path_a, zeros, zeros, bound)
+    with pytest.raises(ValueError, match="bound"):
+        mcts_stream.update_edges(edges, path_n, path_a, zeros, zeros, 3)
+
+
+def test_gomoku_selfplay_runs_through_the_stream_kernels(cuda):
+    cfg = gomoku.MuZeroConfig()
+    cfg.blocks, cfg.channels = 1, 16
+    cfg.parallel_games, cfg.num_simulations, cfg.selfplay_chunk_moves = 16, 400, 2
+    driver = SelfPlayDriver(gomoku.make_env(), MuZeroNetwork(cfg), cfg, seed=0)
+    assert driver.spec.use_stream and not driver.spec.use_kernels and driver.fold_bn
+    before = (mcts_stream.descend_stream.launches, mcts_stream.update_edges.launches)
+    _, stats = driver.play(temperature=1.0)
+    after = (mcts_stream.descend_stream.launches, mcts_stream.update_edges.launches)
+    assert after == (before[0] + 800, before[1] + 800)
+    assert stats["env_steps"] == 32 and stats["max_tree_depth"] >= 2

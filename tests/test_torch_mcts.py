@@ -226,13 +226,11 @@ def test_search_spec_from_config_routes_like_jax():
     for jcfg in (JaxConnect4(), JaxGomoku()):
         jcfg.use_pallas_mcts = jcfg.use_stream_mcts = True
         jspec = jax_mcts.SearchSpec.from_config(jcfg, batch_size=64)
-        if jspec.use_stream:  # gomoku: the stream kernels are not ported
-            with pytest.raises(NotImplementedError, match="item 15"):
-                torch_mcts.SearchSpec.from_config(jcfg, 64, "cuda")
-        else:
-            tspec = torch_mcts.SearchSpec.from_config(jcfg, 64, "cuda")
-            assert tspec.use_kernels == jspec.use_pallas
-            assert tspec.capture_path_stats == jspec.capture_path_stats
+        tspec = torch_mcts.SearchSpec.from_config(jcfg, 64, "cuda")
+        assert tspec.use_kernels == jspec.use_pallas
+        assert tspec.use_stream == jspec.use_stream  # gomoku streams
+        assert tspec.capture_path_stats == jspec.capture_path_stats
+    assert tspec.use_stream
     cfg.search_batch_leaves = 4
     with pytest.raises(NotImplementedError, match="item 14"):
         torch_mcts.SearchSpec.from_config(cfg, 256, "cuda")

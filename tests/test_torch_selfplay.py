@@ -135,13 +135,13 @@ def test_driver_rejects_what_is_not_ported():
     cfg.search_bf16_activations = True
     with pytest.raises(NotImplementedError, match="item 12"):
         SelfPlayDriver(env, net, cfg, device="cpu")
-    # Trees the planar kernels cannot take go to the stream kernels in the
-    # JAX package: not ported.
+    # Trees the planar kernels cannot take go to the stream kernels, as in
+    # the JAX package.
     gcfg = _config(MuZeroConfig, G=16, sims=400)
     gcfg.action_space = list(range(121))
     gcfg.use_pallas_mcts = gcfg.use_stream_mcts = True
-    with pytest.raises(NotImplementedError, match="item 15"):
-        SelfPlayDriver(env, net, gcfg, device="cpu")
+    gspec = SelfPlayDriver(env, net, gcfg, device="cpu").spec
+    assert gspec.use_stream and not gspec.use_kernels
     tcfg = TicTacToeConfig()
     tcfg.downsample = "resnet"
     with pytest.raises(NotImplementedError, match="item 12"):
