@@ -5,9 +5,10 @@
 
 In order, it:
 1. prints the card's name and power limit;
-2. builds every kernel (csrc/mcts_fused.cu, csrc/mcts_kernels.cu and
-   csrc/mcts_stream.cu) from the checkout, one nvcc each, started together,
-   and prints the build times and ptxas' register/shared-memory report;
+2. builds every kernel (csrc/mcts_fused.cu, csrc/mcts_kernels.cu,
+   csrc/mcts_stream.cu and csrc/hidden_store.cu) from the checkout, one nvcc
+   each, started together, and prints the build times and ptxas'
+   register/shared-memory report;
 3. the cartpole path (FC net, the fused-search kernel):
    a. holds the kernel against its plain PyTorch version (search_plain), tie
       jitter 0, in three cases: cartpole with the pretrained weights and
@@ -38,7 +39,29 @@ In order, it:
       equal, root values within 1e-5;
    d. plays 64 games of pretrained MuZero (first to move, temperature 0
       with root noise) against the env's expert: MuZero must win >= 48;
-5. the gomoku path (the shipped 6 x 128 ResNet, seeded random weights, f32;
+   the same at 8 leaves per round (multi-leaf search: the marking descent
+   and the pre-marked backprop):
+   e. each mode against its plain version on a real 256-lane tree after 96
+      of 200 simulations (12 rounds), tie jitter 1e-5, over the next round's
+      8 selections: descend outputs and the marked slab at each selection,
+      then the 8 paths' backprops (visits unchanged, value sums, root stats,
+      min/max) must be equal;
+   f. runs SelfPlayDriver at 256 lanes x 200 simulations in 25 rounds of 8,
+      chunks of 8 moves, as in (b); checks 200 launches of each mode per
+      move and none of the unmarked ones, 25 recurrent inferences of 2,048
+      leaves per move and the visit policies (sum 1, none on a full column);
+      times the device work and profiles one move;
+   g. the whole K = 8 search, kernel route vs plain versions, as in (c);
+   h. 64 games against the expert as in (d), recorded, not a gate;
+6. the node-major descent (the counterpart of tools/resnet_profile.py
+   section 4b) on the end-state tree of (c): kernel vs plain and vs the
+   planar kernel on the same tree, bit-equal with tie jitter on; both
+   layouts timed;
+7. the hidden-store row write (the counterpart of
+   tools/hidden_store_bench.py, [201, 256, 2688]): kernel vs plain,
+   bit-equal, every other row unchanged; the bench's 200-simulation loop;
+   one write beside store[node].copy_(leaf);
+8. the gomoku path (the shipped 6 x 128 ResNet, seeded random weights, f32;
    the staged search's stream route with the stream descent and edge-update
    kernels):
    a. each kernel against its plain version (descend_stream_plain,
@@ -56,7 +79,7 @@ In order, it:
    c. at the 64 mid-game roots the driver reached, runs the whole
       400-simulation search on the kernel route and on the plain versions,
       as in 4c;
-6. prints one {"kernels": [...]} JSON line, then ends with
+9. prints one {"kernels": [...]} JSON line, then ends with
    {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
@@ -343,6 +366,9 @@ def cartpole_path():
         "max_abs_err": main_err,  # the main path's roots, tie jitter on
         "cases_max_abs_err": cases_err,  # the three cases, tie jitter 0
         "ms": kernel_ms,
+        # 20 launches back to back: at ~1.9 ms each the host's launch cost
+        # hides behind the kernel, so a call's time is the card's.
+        "call_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -355,25 +381,29 @@ def cartpole_path():
 # ---------------------------------------------------------------------------
 
 
-def descend_work(leaf_depth, depth_bound, B, A, D):
+def descend_work(leaf_depth, depth_bound, B, A, D, marked=False):
     """(FLOPs, bytes) one descent needs for this data: per level a lane
-    descends, its node's A edges of four stats and the chosen child's index,
-    about 10 operations per edge plus a log, a sqrt and a few for the node;
-    the root's legal row and the min/max once, and every output once."""
+    descends, its node's A edges of four stats and the chosen child's index
+    (marked: and the taken edge's visit written back), about 10 operations
+    per edge plus a log, a sqrt and a few for the node; the root's legal row
+    and the min/max once, and every output once. The same for both
+    layouts."""
     cut = torch.where(leaf_depth < 0, depth_bound, leaf_depth)
     levels = int(cut.sum())
     flops = levels * (10 * A + 8)
-    nbytes = levels * (4 * 4 * A + 4) + 4 * (B * A + 2 * B + 1) + 4 * (3 * B + 2 * B * D)
+    nbytes = (levels * (4 * 4 * A + 4 + (4 if marked else 0)) + 4 * (B * A + 2 * B + 1)
+              + 4 * (3 * B + 2 * B * D))
     return flops, nbytes
 
 
-def backprop_work(leaf_depth, B):
+def backprop_work(leaf_depth, B, pre_marked=False):
     """(FLOPs, bytes) one backprop needs for this data: per node on a path
-    its edge's path entries, visit and value sum read and written and
-    reward read, about 10 operations; per lane its leaf and root scalars."""
+    its edge's path entries, visit read (and written, unless pre-marked),
+    value sum read and written and reward read, about 10 operations; per
+    lane its leaf and root scalars."""
     levels = int((leaf_depth + 1).clamp(min=0).sum())
     flops = levels * 10
-    nbytes = levels * (8 + 16 + 4) + B * 4 * (2 + 1 + 2 * 4)
+    nbytes = levels * (8 + (12 if pre_marked else 16) + 4) + B * 4 * (2 + 1 + 2 * 4)
     return flops, nbytes
 
 
@@ -416,12 +446,8 @@ def snapshot_checks(cfg, folded, env):
     got = mcts_kernels.descend_planar(*dargs, **dkw)
     want = mcts_kernels.descend_planar_plain(*dargs, **dkw)
     torch.cuda.synchronize()
-    for name, g, w in zip(("parent", "action", "leaf_depth", "path_nodes", "path_actions"),
-                          got, want):
-        if not torch.equal(g, w):
-            lane = int((g != w).reshape(B, -1).any(1).nonzero()[0])
-            fail(f"descend_planar: kernel and plain differ in {name} at lane {lane}: "
-                 f"{g[lane].tolist()} vs {w[lane].tolist()}")
+    d_err = check_equal_tensors("descend_planar", got, want,
+                                ("parent", "action", "leaf_depth", "path_nodes", "path_actions"))
     leaf_depth = got[2]
     if bool((leaf_depth < 1).any()):
         fail("descend_planar: a lane was cut by the depth bound")
@@ -444,11 +470,7 @@ def snapshot_checks(cfg, folded, env):
     k_out = mcts_kernels.backprop(*bp_args(k_tree), **bkw)
     p_out = mcts_kernels.backprop_plain(*bp_args(p_tree), **bkw)
     torch.cuda.synchronize()
-    bp_err = 0.0
-    for name, g, w in zip(slabs, k_out, p_out):
-        if not torch.equal(g, w):
-            bp_err = max(bp_err, float((g.double() - w.double()).abs().max()))
-            fail(f"backprop: kernel and plain differ in {name} (max |d| {bp_err!r})")
+    bp_err = check_equal_tensors("backprop", k_out, p_out, slabs)
     changed = int((k_tree.children_visit != tree.children_visit).sum())
     if changed != int(leaf_depth.sum()):
         fail(f"backprop: {changed} edge visits changed, paths hold {int(leaf_depth.sum())}")
@@ -484,15 +506,17 @@ def snapshot_checks(cfg, folded, env):
             f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
     return {
         "descend_planar": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain, bound_ms=d_bound,
-                               bound_by=d_by, max_abs_err=0.0),
+                               bound_by=d_by, max_abs_err=d_err),
         "backprop": dict(ms=b_ms, call_ms=b_call, plain_ms=b_plain, bound_ms=b_bound,
                          bound_by=b_by, max_abs_err=bp_err),
     }
 
 
 def whole_search_check(driver, folded, game="connect4"):
-    """Phases 4c and 5c: run_mcts on the kernel route vs the kernels' plain
-    versions at the driver's mid-game roots, same noise and jitter seed."""
+    """Phases 4c, 4g and 8c: run_mcts on the kernel route vs the kernels'
+    plain versions at the driver's mid-game roots, same noise and jitter
+    seed. Returns the kernel route's MCTSOutput (its tree node-major) and
+    the roots' legal mask."""
     from muzero_general_tpu_torch.ops import mcts as mcts_ops
     from muzero_general_tpu_torch.ops.stacking import stack_observations
 
@@ -537,13 +561,14 @@ def whole_search_check(driver, folded, game="connect4"):
         f"sims, kernels vs their plain versions (jitter seed 777): visits and depth equal, "
         f"max |d root value| {err!r}, max depth {int(k.max_tree_depth.max())}; "
         f"{secs[0] * 1e3:.1f} ms vs {secs[1] * 1e3:.1f} ms (host clock)")
+    return k, legal
 
 
 def profile_move(driver, move_ms):
-    """One move under torch.profiler: the device time of its kernels, the
-    card's busy share of an unprofiled move (`move_ms`, the profiler slows
-    the host) and the largest kernels. Prints "not measured" when the trace
-    holds no device time."""
+    """One move under torch.profiler: the device time of its kernels, their
+    launches per simulation, the card's busy share of an unprofiled move
+    (`move_ms`, the profiler slows the host) and the largest kernels. Prints
+    "not measured" when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -574,17 +599,21 @@ def profile_move(driver, move_ms):
             "measured (the trace holds none)")
         return
     share = 100 * busy_ms / move_ms
+    launches = sum(r[2] for r in rows)
     log(f"[profile] one move: {busy_ms:.2f} ms of device kernels ({len(rows)} kernel names, "
-        f"{sum(r[2] for r in rows)} launches); {wall_ms:.2f} ms wall profiled; of an "
+        f"{launches} launches, {launches / driver.spec.num_simulations:.1f} per simulation); "
+        f"{wall_ms:.2f} ms wall profiled; of an "
         f"unprofiled move ({move_ms:.2f} ms) the card is busy {share:.1f}%, idle "
         f"{100 - share:.1f}%; trace read in {time.perf_counter() - t_parse:.1f} s")
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
 
 
-def quality_gate(cfg, folded, env):
-    """Phase 4d: 64 games of MuZero (player 0, moves first, temperature 0
-    with root noise as evaluate.py) against the env's expert."""
+def quality_gate(cfg, folded, env, gate=True):
+    """Phases 4d and 4h: 64 games of MuZero (player 0, moves first,
+    temperature 0 with root noise as evaluate.py) against the env's expert.
+    gate: fail below QUALITY_WINS wins (else only recorded). Returns the
+    number won."""
     from muzero_general_tpu_torch.ops import mcts as mcts_ops
 
     dev = torch.device("cuda")
@@ -610,10 +639,12 @@ def quality_gate(cfg, folded, env):
         losses |= ~muzero & (reward > 0)
     n_win, n_loss = int(wins.sum()), int(losses.sum())
     log(f"[connect4] quality: {G} games, pretrained MuZero (first, temperature 0, root "
-        f"noise, {cfg.num_simulations} sims) vs the expert: {n_win} won, {n_loss} lost, "
-        f"{G - n_win - n_loss} drawn")
-    if n_win < QUALITY_WINS:
+        f"noise, {cfg.num_simulations} sims, {spec.batch_leaves} leaves per round) vs the "
+        f"expert: {n_win} won, {n_loss} lost, {G - n_win - n_loss} drawn"
+        + ("" if gate else " (recorded, not a gate)"))
+    if gate and n_win < QUALITY_WINS:
         fail(f"quality gate: MuZero won {n_win} of {G} < {QUALITY_WINS}")
+    return n_win
 
 
 def connect4_path():
@@ -701,7 +732,7 @@ def connect4_path():
     profile_move(driver, loop_ms)
 
     # ---- 4c, 4d ----------------------------------------------------------
-    whole_search_check(driver, folded)
+    end_state = (*whole_search_check(driver, folded), driver.spec)
     quality_gate(cfg, folded, make_env())
 
     entries = []
@@ -722,7 +753,436 @@ def connect4_path():
             "bound_by": kernels[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call descends or backs up a tree
         })
+    return entries, end_state
+
+
+# ---------------------------------------------------------------------------
+# The connect4 path at 8 leaves per round: the marking descent and the
+# pre-marked backprop
+# ---------------------------------------------------------------------------
+
+
+def check_equal_tensors(name, got, want, names):
+    """Fail unless each pair is bit-equal; returns the largest |difference|."""
+    err = 0.0
+    for field, g, w in zip(names, got, want):
+        err = max(err, float((g.double() - w.double()).abs().max()))
+        if not torch.equal(g, w):
+            bad = (g != w).reshape(g.shape[0], -1).any(1).nonzero()
+            fail(f"{name}: kernel and plain differ in {field} at lane {int(bad[0])}")
+    return err
+
+
+def multileaf_snapshot_checks(cfg, folded, env):
+    """Phase 4e: the marking descent and the pre-marked backprop vs their
+    plain versions on a real 256-lane K = 8 tree after 96 of 200 simulations
+    (12 whole rounds), over the next round's 8 selections. Returns
+    per-kernel numbers."""
+    from muzero_general_tpu_torch.ops import mcts as mcts_ops
+    from muzero_general_tpu_torch.ops import mcts_kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(51)
+    B, A, D = cfg.parallel_games, len(cfg.action_space), cfg.num_simulations + 1
+    spec = mcts_ops.SearchSpec.from_config(cfg, B, dev)
+    K = spec.batch_leaves
+    if not spec.use_kernels or K != 8:
+        fail("connect4 at 8 leaves per round did not take the kernel route")
+    state = random_positions(env, B, 6, gen)
+    obs, legal, to_play = env.observation(state), env.legal_actions_mask(state), env.to_play(state)
+    sim, seed = 96, 5151
+    with torch.no_grad():
+        out = mcts_ops.run_mcts(folded.initial_inference, folded.recurrent_inference, obs,
+                                legal, to_play, gen, spec, seed=seed, num_steps=sim)
+    tree = mcts_ops._to_planar(out.tree)
+    depth_bound = (out.max_tree_depth.max() + 1).to(torch.int32)
+    legal_i32 = legal.to(torch.int32).contiguous()
+    dkw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+               pb_c_init=spec.pb_c_init, discount=spec.discount,
+               max_depth=spec.max_depth, tie_jitter=spec.tie_jitter, mark_visits=True)
+
+    def dargs(t, k):
+        return (seed, sim + k, depth_bound, t.children_index, t.children_prior,
+                t.children_visit, t.children_vsum, t.children_reward, legal_i32,
+                t.min_value, t.max_value)
+
+    # The round's K selections, each on its own side's marked slab.
+    k_tree = tree._replace(children_visit=tree.children_visit.clone())
+    p_tree = tree._replace(children_visit=tree.children_visit.clone())
+    names = ("parent", "action", "leaf_depth", "path_nodes", "path_actions", "marked visits")
+    sels, d_err = [], 0.0
+    for k in range(K):
+        got = mcts_kernels.descend_planar(*dargs(k_tree, k), **dkw)
+        want = mcts_kernels.descend_planar_plain(*dargs(p_tree, k), **dkw)
+        torch.cuda.synchronize()
+        d_err = max(d_err, check_equal_tensors(f"descend_planar (mark_visits), selection {k}",
+                                               got + (k_tree.children_visit,),
+                                               want + (p_tree.children_visit,), names))
+        sels.append(got)
+    leaf_depth = torch.stack([s[2] for s in sels])
+    if bool((leaf_depth < 1).any()):
+        fail("descend_planar (mark_visits): a lane was cut by the depth bound")
+    marks = int((k_tree.children_visit - tree.children_visit).sum())
+    if marks != int(leaf_depth.sum()):
+        fail(f"descend_planar (mark_visits): {marks} marks, paths hold {int(leaf_depth.sum())}")
+    distinct = int((torch.stack([s[4] for s in sels]) != sels[0][4]).any(2).any(0).sum())
+    log(f"[connect4 K=8] descend_planar(mark_visits) vs plain over one round of {K} "
+        f"selections at a {B}-lane tree after {sim} sims, tie jitter {spec.tie_jitter!r}: "
+        f"all five outputs and the marked slab equal at every selection; {marks} marks; leaf "
+        f"depths {int(leaf_depth.min())}-{int(leaf_depth.max())}; {distinct} lanes' later "
+        f"selections left the first one's path")
+
+    # The round's K pre-marked backprops, one after another, on both sides.
+    marked = k_tree._replace(root_visit=k_tree.root_visit + K)
+    values = torch.randn((K, B), generator=gen, device=dev) * 3
+    bkw = dict(num_players=spec.num_players, discount=spec.discount, planar=True,
+               pre_marked=True)
+
+    def bp_args(t, k):
+        s = sels[k]
+        return (s[3], s[4], s[2], values[k], t.children_visit, t.children_vsum,
+                t.children_reward, t.root_visit, t.root_vsum, t.root_reward, t.min_value,
+                t.max_value)
+
+    k_bp = mcts_ops.Tree(*(x.clone() for x in marked))
+    p_bp = mcts_ops.Tree(*(x.clone() for x in marked))
+    for k in range(K):
+        k_out = mcts_kernels.backprop(*bp_args(k_bp, k), **bkw)
+        p_out = mcts_kernels.backprop_plain(*bp_args(p_bp, k), **bkw)
+    torch.cuda.synchronize()
+    slabs = ("children_visit", "children_vsum", "root_visit", "root_vsum", "min_value",
+             "max_value")
+    b_err = check_equal_tensors("backprop (pre_marked)", k_out, p_out, slabs)
+    if not (torch.equal(k_bp.children_visit, marked.children_visit)
+            and torch.equal(k_bp.root_visit, marked.root_visit)):
+        fail("backprop (pre_marked): visits changed")
+    log(f"[connect4 K=8] backprop(pre_marked) vs plain on those {K} paths, folded one after "
+        f"another: visits (unchanged), value sums, root stats and min/max equal")
+
+    # Timings at this snapshot, on working copies: the marking descent of the
+    # round's first selection (its marks pile up over the repeats) and the
+    # first path's pre-marked backprop.
+    w_tree = tree._replace(children_visit=tree.children_visit.clone())
+    w_bp = mcts_ops.Tree(*(x.clone() for x in marked))
+
+    def descend():
+        return mcts_kernels.descend_planar(*dargs(w_tree, 0), **dkw)
+
+    def backprop():
+        return mcts_kernels.backprop(*bp_args(w_bp, 0), **bkw)
+
+    with torch.no_grad():
+        d_call = cuda_ms(descend, 50)
+        d_ms = graph_ms(descend, 50)
+        mcts_kernels.descend_planar_plain(*dargs(w_tree, 0), **dkw)
+        d_plain = cuda_ms(lambda: mcts_kernels.descend_planar_plain(*dargs(w_tree, 0), **dkw),
+                          1)
+        b_call = cuda_ms(backprop, 50)
+        b_ms = graph_ms(backprop, 50)
+        b_plain = cuda_ms(lambda: mcts_kernels.backprop_plain(*bp_args(w_bp, 0), **bkw), 1)
+    d_bound, d_by = bound_ms(*descend_work(sels[0][2], int(depth_bound), B, A, D, marked=True))
+    b_bound, b_by = bound_ms(*backprop_work(sels[0][2], B, pre_marked=True))
+    for name, ms, call, plain, bnd, by in (("descend_planar (mark_visits)", d_ms, d_call,
+                                            d_plain, d_bound, d_by),
+                                           ("backprop (pre_marked)", b_ms, b_call, b_plain,
+                                            b_bound, b_by)):
+        log(f"[connect4 K=8] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 "
+            f"launches), {call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
+            f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    return {
+        "descend_planar_mark": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain,
+                                    bound_ms=d_bound, bound_by=d_by, max_abs_err=d_err),
+        "backprop_pre_marked": dict(ms=b_ms, call_ms=b_call, plain_ms=b_plain,
+                                    bound_ms=b_bound, bound_by=b_by, max_abs_err=b_err),
+    }
+
+
+def connect4_multileaf_path():
+    """Phases 4e-4h; returns the marking descent's and the pre-marked
+    backprop's entries of the kernels line."""
+    from muzero_general_tpu_torch.games.connect4 import MuZeroConfig, make_env
+    from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
+    from muzero_general_tpu_torch.models.resnet import ResMuZero
+    from muzero_general_tpu_torch.ops import mcts_kernels
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+
+    cfg = MuZeroConfig()
+    cfg.parallel_games = 256
+    cfg.selfplay_chunk_moves = 8
+    cfg.search_batch_leaves = 8
+    net = load_pretrained(MuZeroNetwork(cfg), C4_CHECKPOINT)
+    folded = fold_bn(net)
+    env = make_env()
+    kernels = multileaf_snapshot_checks(cfg, folded, env)
+
+    # ---- 4f. the main path -------------------------------------------------
+    driver = SelfPlayDriver(env, net, cfg, seed=0)
+    spec = driver.spec
+    if driver.use_fused or not spec.use_kernels or spec.batch_leaves != 8 or not driver.fold_bn:
+        fail("connect4 K=8: the driver did not route to the marking kernels")
+    K, reps, S, L = cfg.selfplay_chunk_moves, 3, cfg.num_simulations, spec.batch_leaves
+    chunk_times, records, inferences = [], [], []
+    play_chunk = driver.play_chunk
+    recurrent_inference = ResMuZero.recurrent_inference
+
+    def timed_play_chunk(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = play_chunk(*args, **kwargs)
+        torch.cuda.synchronize()
+        chunk_times.append(time.perf_counter() - t)
+        records.append(out)
+        return out
+
+    def counted_recurrent_inference(self, hidden, action):
+        inferences.append(hidden.shape[0])
+        return recurrent_inference(self, hidden, action)
+
+    driver.play_chunk = timed_play_chunk
+    ResMuZero.recurrent_inference = counted_recurrent_inference
+    try:
+        d, b = mcts_kernels.descend_planar, mcts_kernels.backprop
+        d.launches = d.marked_launches = b.launches = b.pre_marked_launches = 0
+        driver.play(temperature=1.0)  # warm-up
+        chunk_times.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _, stats = driver.play(temperature=1.0)
+        torch.cuda.synchronize()
+        chunk_s = (time.perf_counter() - t0) / reps
+        launches = {"descend_planar_mark": d.marked_launches,
+                    "backprop_pre_marked": b.pre_marked_launches,
+                    "descend_planar": d.launches - d.marked_launches,
+                    "backprop": b.launches - b.pre_marked_launches}
+    finally:
+        ResMuZero.recurrent_inference = recurrent_inference
+        del driver.play_chunk
+    moves = (reps + 1) * K
+    for name in ("descend_planar_mark", "backprop_pre_marked"):
+        if launches[name] != S * moves:
+            fail(f"connect4 K=8 main path: {name} launched {launches[name]} times for "
+                 f"{moves} moves x {S} sims")
+    if launches["descend_planar"] or launches["backprop"]:
+        fail(f"connect4 K=8 main path: unmarked tree kernels launched: {launches}")
+    if len(inferences) != moves * S // L or set(inferences) != {L * driver.G}:
+        fail(f"connect4 K=8 main path: {len(inferences)} recurrent inferences of batch "
+             f"{sorted(set(inferences))} for {moves} moves x {S // L} rounds of {L * driver.G}")
+    for rec in records:
+        full = rec.observation[:, :, :2, -1, :].sum(2) > 0  # [K, G, columns]
+        policy = rec.child_visits
+        if not bool(((policy.sum(-1) - 1).abs() < 1e-5).all()):
+            fail("connect4 K=8 main path: a visit policy does not sum to 1")
+        if bool((policy[full] != 0).any()):
+            fail("connect4 K=8 main path: a full column got visits")
+    log(f"[connect4 K=8] SelfPlayDriver.play: {driver.G} lanes x {S} sims in {S // L} rounds "
+        f"of {L} leaves, {K} moves/chunk, pretrained 3x64 ResNet: {chunk_s * 1e3:.2f} "
+        f"ms/chunk, {stats['env_steps'] / chunk_s:.1f} env-steps/s, launches {launches} "
+        f"({S} per move), {len(inferences) // moves} recurrent inferences of "
+        f"{L * driver.G} leaves per move, max tree depth {stats['max_tree_depth']}")
+    loop_ms = sum(chunk_times) * 1e3 / (reps * K)
+    move_ms = chunk_s * 1e3 / K
+
+    with torch.no_grad():
+        obs = driver.env.observation(driver._carry.env_state)
+        hidden = folded.initial_inference(obs)[3].repeat(L, 1, 1, 1)
+        action = torch.zeros((L * driver.G,), dtype=torch.long, device=hidden.device)
+
+        def recurrent():
+            return folded.recurrent_inference(hidden, action)
+
+        rec_call = cuda_ms(recurrent, 10)
+        rec_ms = graph_ms(recurrent, 10)
+        init_ms = graph_ms(lambda: folded.initial_inference(obs), 5)
+    dev_net = S // L * rec_ms + init_ms
+    dev_kern = S * (kernels["descend_planar_mark"]["ms"] + kernels["backprop_pre_marked"]["ms"])
+    log(f"[connect4 K=8] per move: {move_ms:.3f} ms = move loop {loop_ms:.3f} + host episode "
+        f"cuts {move_ms - loop_ms:.3f}. Device work in the loop: network {dev_net:.3f} "
+        f"({S // L} x {rec_ms:.4f} recurrent at {L * driver.G} leaves + {init_ms:.4f} initial, "
+        f"graph replay; {rec_call:.4f} ms per recurrent call from Python) + tree kernels "
+        f"{dev_kern:.3f} ({S} x (descend {kernels['descend_planar_mark']['ms']:.4f} + backprop "
+        f"{kernels['backprop_pre_marked']['ms']:.4f})); the other "
+        f"{loop_ms - dev_net - dev_kern:.3f} ms is host time the card waits on and small ops")
+    profile_move(driver, loop_ms)
+
+    # ---- 4g, 4h -------------------------------------------------------------
+    whole_search_check(driver, folded, "connect4 K=8")
+    wins = quality_gate(cfg, folded, make_env(), gate=False)
+
+    entries = []
+    for name, replaces in (("descend_planar_mark", "muzero_general_tpu/ops/mcts_pallas.py:217"),
+                           ("backprop_pre_marked", "muzero_general_tpu/ops/mcts_pallas.py:387")):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": CSRC + "mcts_kernels.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "visits_exact": True,  # the checks failed the run otherwise
+            "max_abs_err": kernels[name]["max_abs_err"],
+            "ms": kernels[name]["ms"],
+            "call_ms": kernels[name]["call_ms"],
+            "plain_ms": kernels[name]["plain_ms"],
+            "bound_ms": kernels[name]["bound_ms"],
+            "bound_by": kernels[name]["bound_by"],
+            "library_ms": None,  # no single PyTorch call descends or backs up a tree
+        })
+    entries[0]["quality_wins_of_64"] = wins  # recorded, not a gate
     return entries
+
+
+# ---------------------------------------------------------------------------
+# Kernels 6 and 7: the node-major descent and the hidden-store row write,
+# driven as the JAX package's tools drive theirs
+# ---------------------------------------------------------------------------
+
+
+def node_major_descend_phase(out, legal, spec):
+    """Phase 6, the counterpart of tools/resnet_profile.py section 4b: the
+    node-major descent on the realistic end-state tree of the connect4
+    whole search (node-major, as run_mcts returns it). Kernel vs plain with
+    tie jitter on, and vs the planar kernel on the same tree transposed;
+    then the timing loop, which is this phase's path: its launches are
+    counted."""
+    from muzero_general_tpu_torch.ops import mcts as mcts_ops
+    from muzero_general_tpu_torch.ops import mcts_kernels
+
+    tree = out.tree
+    B, N, A = tree.children_index.shape
+    D = spec.max_depth + 1
+    depth_bound = (out.max_tree_depth.max() + 1).to(torch.int32)
+    legal_i32 = legal.to(torch.int32).contiguous()
+    planar = mcts_ops._to_planar(tree)
+    kw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+              pb_c_init=spec.pb_c_init, discount=spec.discount, max_depth=spec.max_depth,
+              tie_jitter=spec.tie_jitter)
+
+    def args(t):
+        return (7, spec.num_simulations, depth_bound, t.children_index, t.children_prior,
+                t.children_visit, t.children_vsum, t.children_reward, legal_i32,
+                t.min_value, t.max_value)
+
+    names = ("parent", "action", "leaf_depth", "path_nodes", "path_actions")
+    got = mcts_kernels.descend(*args(tree), **kw)
+    want = mcts_kernels.descend_plain(*args(tree), **kw)
+    p_got = mcts_kernels.descend_planar(*args(planar), **kw)
+    torch.cuda.synchronize()
+    err = check_equal_tensors("descend (node-major)", got, want, names)
+    check_equal_tensors("descend (node-major) vs descend_planar", got, p_got, names)
+    leaf_depth = got[2]
+    if bool((leaf_depth < 1).any()):
+        fail("descend (node-major): a lane was cut by the depth bound")
+    log(f"[descend] node-major kernel vs plain, and vs the planar kernel on the same end-state "
+        f"tree ({B} lanes, {spec.num_simulations} sims, tie jitter {spec.tie_jitter!r}): all "
+        f"five outputs equal; leaf depths {int(leaf_depth.min())}-{int(leaf_depth.max())}, "
+        f"depth bound {int(depth_bound)}")
+
+    with torch.no_grad():
+        mcts_kernels.descend.launches = 0
+        n_call = cuda_ms(lambda: mcts_kernels.descend(*args(tree), **kw), 50)
+        launches = mcts_kernels.descend.launches
+        n_ms = graph_ms(lambda: mcts_kernels.descend(*args(tree), **kw), 50)
+        p_call = cuda_ms(lambda: mcts_kernels.descend_planar(*args(planar), **kw), 50)
+        p_ms = graph_ms(lambda: mcts_kernels.descend_planar(*args(planar), **kw), 50)
+        mcts_kernels.descend_plain(*args(tree), **kw)
+        n_plain = cuda_ms(lambda: mcts_kernels.descend_plain(*args(tree), **kw), 1)
+    if launches != 50:
+        fail(f"descend (node-major): {launches} launches in the 50-call timing loop")
+    bnd, by = bound_ms(*descend_work(leaf_depth, int(depth_bound), B, A, D))
+    log(f"[descend] end-state tree: node-major {n_ms:.4f} ms/launch on the card (CUDA graph of "
+        f"50), {n_call:.4f} ms per call (CUDA events, 50 calls); planar {p_ms:.4f} ms/launch, "
+        f"{p_call:.4f} ms per call; plain {n_plain:.3f} ms; bound {bnd:.6f} ms ({by})")
+    return {
+        "name": "descend",
+        "route": "cuda",
+        "source": CSRC + "mcts_kernels.cu",
+        "replaces": "muzero_general_tpu/ops/mcts_pallas.py:51",
+        "launches": launches,  # the timing loop, this phase's path
+        "visits_exact": True,
+        "max_abs_err": err,
+        "ms": n_ms,
+        "call_ms": n_call,
+        "planar_ms": p_ms,  # descend_planar on the same tree, same graph replay
+        "plain_ms": n_plain,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call descends a tree
+    }
+
+
+def row_write_phase():
+    """Phase 7, the counterpart of tools/hidden_store_bench.py at its shape
+    (N, B, F = 201, 256, 2688: connect4's 64 x 6 x 7 hidden state): kernel
+    vs plain, bit-equal, every other row unchanged; then the bench's loop of
+    200 simulations (gather row `parent`, write row i + 1), this phase's
+    path, whose launches are counted, beside the same loop with an indexed
+    PyTorch write; then one write's time beside store[node].copy_(leaf)."""
+    from muzero_general_tpu_torch.ops import hidden_store
+
+    dev = torch.device("cuda")
+    N, B, F, sims = 201, 256, 2688, 200
+    gen = torch.Generator(device=dev).manual_seed(61)
+    store = torch.randn((N, B, F), generator=gen, device=dev)
+    leaf = torch.randn((B, F), generator=gen, device=dev)
+    nodes = torch.arange(N, dtype=torch.int32, device=dev)
+    got = hidden_store.write_node_hidden(store.clone(), nodes[7], leaf)
+    want = hidden_store.write_node_hidden_plain(store.clone(), nodes[7], leaf)
+    torch.cuda.synchronize()
+    err = check_equal_tensors("write_node_hidden", (got,), (want,), ("store",))
+    others = torch.arange(N, device=dev) != 7
+    if not torch.equal(got[others], store[others]) or not torch.equal(got[7], leaf):
+        fail("write_node_hidden: the write touched another row or missed its own")
+    log(f"[hidden store] write_node_hidden vs plain at [{N}, {B}, {F}]: equal, the other "
+        f"{N - 1} rows unchanged")
+
+    b_idx = torch.arange(B, device=dev)
+    parent = torch.zeros((B,), dtype=torch.long, device=dev)
+
+    def loop(write):
+        for i in range(sims):
+            h = store[parent, b_idx]
+            write(i + 1, h * 1.000001)
+
+    def kernel(i, h):
+        hidden_store.write_node_hidden(store, nodes[i], h)
+
+    loop(kernel)  # warm-up
+    hidden_store.write_node_hidden.launches = 0
+    loop_kernel = cuda_ms(lambda: loop(kernel), 1) / sims
+    launches = hidden_store.write_node_hidden.launches
+    if launches != sims:
+        fail(f"write_node_hidden: {launches} launches in the {sims}-simulation loop")
+
+    def indexed(i, h):
+        store[i] = h
+
+    loop(indexed)
+    loop_indexed = cuda_ms(lambda: loop(indexed), 1) / sims
+    with torch.no_grad():
+        call = cuda_ms(lambda: hidden_store.write_node_hidden(store, nodes[7], leaf), 50)
+        ms = graph_ms(lambda: hidden_store.write_node_hidden(store, nodes[7], leaf), 50)
+        plain = cuda_ms(lambda: hidden_store.write_node_hidden_plain(store, nodes[7], leaf), 20)
+        library = graph_ms(lambda: store[7].copy_(leaf), 50)
+    bnd, by = bound_ms(0, 2 * B * F * 4)
+    log(f"[hidden store] the bench's loop: {loop_kernel:.4f} ms per simulation with the "
+        f"kernel, {loop_indexed:.4f} with store[i + 1] = h (CUDA events over {sims}); one "
+        f"write {ms:.4f} ms on the card (CUDA graph of 50), {call:.4f} ms per call, plain "
+        f"{plain:.4f} ms, store[node].copy_(leaf) {library:.4f} ms; bound {bnd:.6f} ms ({by}: "
+        f"{2 * B * F * 4 / 1e6:.3f} MB)")
+    return {
+        "name": "write_node_hidden",
+        "route": "cuda",
+        "source": CSRC + "hidden_store.cu",
+        "replaces": "muzero_general_tpu/ops/hidden_store.py:30",
+        "launches": launches,  # the bench loop, this phase's path
+        "max_abs_err": err,
+        "ms": ms,
+        "call_ms": call,
+        "plain_ms": plain,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": library,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -751,7 +1211,7 @@ def update_work(upd_depth, bound, B):
 
 
 def stream_snapshot_checks(cfg, folded, env):
-    """Phase 5a: each stream kernel vs its plain version on a real 64-lane
+    """Phase 8a: each stream kernel vs its plain version on a real 64-lane
     slab after 200 of 400 simulations. Returns per-kernel numbers."""
     from muzero_general_tpu_torch.ops import mcts as mcts_ops
     from muzero_general_tpu_torch.ops import mcts_stream
@@ -856,7 +1316,7 @@ def stream_snapshot_checks(cfg, folded, env):
 
 
 def gomoku_path():
-    """Phases 5a-5c; returns the two stream kernels' entries of the kernels
+    """Phases 8a-8c; returns the two stream kernels' entries of the kernels
     line."""
     from muzero_general_tpu_torch.games.gomoku import MuZeroConfig, make_env
     from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
@@ -873,7 +1333,7 @@ def gomoku_path():
     kernels = stream_snapshot_checks(cfg, folded, env)
     log(f"[gomoku] snapshot checks done after {time.perf_counter() - t_path:.1f} s")
 
-    # ---- 5b. the main path -----------------------------------------------
+    # ---- 8b. the main path -----------------------------------------------
     driver = SelfPlayDriver(env, net, cfg, seed=0)
     spec = driver.spec
     if driver.use_fused or spec.use_kernels or not spec.use_stream or not driver.fold_bn:
@@ -949,7 +1409,7 @@ def gomoku_path():
     profile_move(driver, loop_ms)
     log(f"[gomoku] profile done after {time.perf_counter() - t_path:.1f} s")
 
-    # ---- 5c. ---------------------------------------------------------------
+    # ---- 8c. ---------------------------------------------------------------
     whole_search_check(driver, folded, "gomoku")
 
     entries = []
@@ -988,12 +1448,18 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[device] torch: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 2.-5. ----------------------------------------------------------
+    # ---- 2.-8. ----------------------------------------------------------
     build_kernels()
     kernels = [cartpole_path()]
     log(f"[done] cartpole path after {time.perf_counter() - t_start:.1f} s")
-    kernels += connect4_path()
+    entries, end_state = connect4_path()
+    kernels += entries
     log(f"[done] connect4 path after {time.perf_counter() - t_start:.1f} s")
+    kernels += connect4_multileaf_path()
+    log(f"[done] connect4 K=8 path after {time.perf_counter() - t_start:.1f} s")
+    kernels.append(node_major_descend_phase(*end_state))
+    kernels.append(row_write_phase())
+    log(f"[done] kernels 6 and 7 after {time.perf_counter() - t_start:.1f} s")
     kernels += gomoku_path()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

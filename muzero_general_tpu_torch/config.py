@@ -142,8 +142,9 @@ class MuZeroConfig:
         # also on the CPU (through their plain versions) when
         # use_pallas_mcts resolves too.
         self.use_stream_mcts = "auto"
-        # Read: values above 1 raise NotImplementedError (multi-leaf search,
-        # ROADMAP module item 14).
+        # Used: K > 1 runs the staged search in multi-leaf rounds of K leaves
+        # (ops/mcts.py); it must divide num_simulations. FC nets on the fused
+        # search ignore it, as in the JAX package.
         self.search_batch_leaves = 1
         # Used: self-play folds a ResNet's batch norms into its convs once
         # per play_chunk (models/network.py fold_bn).

@@ -1,24 +1,33 @@
-// The staged search's two tree kernels, for Hopper (sm_90a): the planar
-// descent and the leaf-to-root backprop.
+// The staged search's tree kernels, for Hopper (sm_90a): the descent (planar
+// and node-major layouts, with an optional virtual-visit mark) and the
+// leaf-to-root backprop (with an optional pre-marked mode).
 //
 // mcts_descend_planar replaces the TPU kernel
 // muzero_general_tpu/ops/mcts_pallas.py::_descend_kernel_planar (launched by
 // descend_planar, from ops/mcts.py _select_leaf): all B trees descend by
 // pUCT from the root to their first unexpanded edge, on planar [B, A, N]
 // edge slabs (edge (node, action) of lane b at (b * A + action) * N + node).
-// mcts_backprop replaces muzero_general_tpu/ops/mcts_pallas.py::
-// _backprop_kernel (launched by backprop, from ops/mcts.py
-// _expand_and_backprop): each lane folds its leaf value from the leaf to the
-// root, updating edge visits and value sums, the root's scalars and the
-// MinMaxStats in place, with two-player signs and the discount. Its edge
+// With mark_visits (multi-leaf rounds, mcts_pallas.py:336-345) it adds +1 to
+// the visit of every edge a lane takes, the final unexpanded one included,
+// in place on the visit slab, after that level's pUCT has been scored.
+// mcts_descend replaces mcts_pallas.py::_descend_kernel, the same descent on
+// node-major [B, N, A] slabs (edge (node, action) at (b * N + node) * A +
+// action); both layouts share one body, so on the same tree, seed and
+// simulation they give the same outputs bit for bit.
+// mcts_backprop replaces mcts_pallas.py::_backprop_kernel (launched by
+// backprop, from ops/mcts.py): each lane folds its leaf value from the leaf
+// to the root, updating edge visits and value sums, the root's scalars and
+// the MinMaxStats in place, with two-player signs and the discount. Its edge
 // offsets are node * stride_n + action * stride_a, so the planar (1, N) and
-// the node-major (A, 1) layouts both work.
+// the node-major (A, 1) layouts both work. pre_marked (multi-leaf rounds,
+// mcts_pallas.py:469-477): the visits were marked by the descent, so it adds
+// no edge or root visit and divides by max(visit, 1) instead of visit + 1.
 //
-// Their plain PyTorch versions are ops/mcts_kernels.py::descend_planar_plain
-// and ::backprop_plain, which these kernels must match exactly: paths,
-// actions, depths and visits bit for bit, value sums and min/max to the
-// last bit as well (same float32 operations in the same order: this file is
-// built with --fmad=false, its flags in native/build.py).
+// Their plain PyTorch versions are ops/mcts_kernels.py::descend_planar_plain,
+// ::descend_plain and ::backprop_plain, which these kernels must match
+// exactly: paths, actions, depths and visits bit for bit, value sums and
+// min/max to the last bit as well (same float32 operations in the same
+// order: this file is built with --fmad=false, its flags in native/build.py).
 //
 // What bounds them on this card. Neither does enough work to be bound by
 // bytes or operations: a connect4 descent reads A = 7 edges of five stats
@@ -32,21 +41,21 @@
 // deepest lane's chain plus the launch itself.
 //
 // What the design does about that. The TPU kernel's one-hot mask-reduce
-// "gathers" (Mosaic lacks narrow gathers) become direct indexing: each
-// level reads only the current node's edges, and each lane stops at its own
-// unexpanded edge instead of looping to the batch-wide bound. The descent
-// gives each lane a warp, its threads over actions (strides of 32, so any A
-// works), with a shuffle argmax that takes the first index among equal
-// scores; the backprop gives each lane one thread that walks its own path
-// and needs no batch-wide bound. Several lanes per block keep the SM's
-// schedulers busy while one lane waits on a load. Nothing here allocates:
-// the wrapper passes every output. Faster designs (the tree rows in shared
-// memory, several lanes per warp, a CUDA graph around the simulation loop)
-// are later work.
+// "gathers" and selection matmuls (Mosaic lacks narrow gathers) become
+// direct indexing: each level reads only the current node's edges, and each
+// lane stops at its own unexpanded edge instead of looping to the batch-wide
+// bound. The descent gives each lane a warp, its threads over actions
+// (strides of 32, so any A works), with a shuffle argmax that takes the
+// first index among equal scores; the backprop gives each lane one thread
+// that walks its own path and needs no batch-wide bound. Several lanes per
+// block keep the SM's schedulers busy while one lane waits on a load.
+// Nothing here allocates: the wrapper passes every output. Faster designs
+// (the tree rows in shared memory, several lanes per warp, a CUDA graph
+// around the simulation loop) are later work.
 //
 // Tie jitter: as in csrc/mcts_fused.cu, a Philox4x32-10 stream keyed by the
 // wrapper's seed, counter (lane, simulation, level, action / 4); the plain
-// version computes the same stream (ops/philox.py).
+// versions compute the same stream (ops/philox.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,18 +81,17 @@ struct DescendArgs {
   uint32_t key0, key1;
 };
 
-__global__ void descend_planar_kernel(DescendArgs args, const int* __restrict__ depth_bound,
-                                      const int* __restrict__ child,
-                                      const float* __restrict__ prior,
-                                      const int* __restrict__ visit,
-                                      const float* __restrict__ vsum,
-                                      const float* __restrict__ reward,
-                                      const int* __restrict__ legal,
-                                      const float* __restrict__ min_value,
-                                      const float* __restrict__ max_value,
-                                      int* __restrict__ out_parent, int* __restrict__ out_action,
-                                      int* __restrict__ out_depth, int* __restrict__ path_n,
-                                      int* __restrict__ path_a) {
+// kPlanar: [B, A, N] slabs, else node-major [B, N, A]. kMark: +1 visit on
+// every edge taken (the visit slab is then written).
+template <bool kPlanar, bool kMark>
+__global__ void descend_kernel(DescendArgs args, const int* __restrict__ depth_bound,
+                               const int* __restrict__ child, const float* __restrict__ prior,
+                               int* __restrict__ visit, const float* __restrict__ vsum,
+                               const float* __restrict__ reward, const int* __restrict__ legal,
+                               const float* __restrict__ min_value,
+                               const float* __restrict__ max_value, int* __restrict__ out_parent,
+                               int* __restrict__ out_action, int* __restrict__ out_depth,
+                               int* __restrict__ path_n, int* __restrict__ path_a) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= args.B) return;  // whole warps leave together
@@ -102,6 +110,10 @@ __global__ void descend_planar_kernel(DescendArgs args, const int* __restrict__ 
   // The caller's bound on the descent length, capped at the tree's depth.
   const int bound = min(*depth_bound, D - 1);
   const size_t lane_base = (size_t)b * A * N;
+  // Edge (node, action) of this lane.
+  auto edge = [&](int node, int a) -> size_t {
+    return lane_base + (kPlanar ? (size_t)a * N + node : (size_t)node * A + a);
+  };
 
   int current = 0, depth = 0, parent = 0, action = 0;
   bool active = true;
@@ -109,7 +121,7 @@ __global__ void descend_planar_kernel(DescendArgs args, const int* __restrict__ 
     // visit(node): the sum of its edge visits, +1 for an interior node's
     // expansion (integers below 2^24: exact in any order).
     float part = 0.f;
-    for (int a = lane; a < A; a += 32) part += (float)visit[lane_base + (size_t)a * N + current];
+    for (int a = lane; a < A; a += 32) part += (float)visit[edge(current, a)];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
     const float pvis = part + (current != 0 ? 1.f : 0.f);
@@ -119,7 +131,7 @@ __global__ void descend_planar_kernel(DescendArgs args, const int* __restrict__ 
     float best_s = -INFINITY;
     int best_a = 0x7fffffff;
     for (int a = lane; a < A; a += 32) {
-      const size_t e = lane_base + (size_t)a * N + current;
+      const size_t e = edge(current, a);
       const float cvis = (float)visit[e];
       const float cval = cvis > 0.f ? vsum[e] / fmaxf(cvis, 1.f) : 0.f;
       const float prior_score = pb_c_num / (cvis + 1.f) * prior[e];
@@ -151,7 +163,13 @@ __global__ void descend_planar_kernel(DescendArgs args, const int* __restrict__ 
     }
     if (best_a >= A) best_a = 0;  // only if every score is NaN
     if (lane == 0) pa[t] = best_a;
-    const int next = child[lane_base + (size_t)best_a * N + current];
+    // The virtual-visit mark, after this level's scores (every thread's
+    // loads of this node's visits fed the shuffles above, so none is still
+    // pending). One thread adds: the warp owns its lane's slab, so there are
+    // no atomics. No thread reads this entry again: the next level reads the
+    // child's edges, and a descent never revisits a node.
+    if (kMark && lane == 0) visit[edge(current, best_a)] += 1;
+    const int next = child[edge(current, best_a)];
     if (next < 0) {
       parent = current;
       action = best_a;
@@ -172,7 +190,7 @@ __global__ void descend_planar_kernel(DescendArgs args, const int* __restrict__ 
 }
 
 struct BackpropArgs {
-  int B, D, NA, stride_n, stride_a, num_players;
+  int B, D, NA, stride_n, stride_a, num_players, pre_marked;
   float discount, disc_sign;
 };
 
@@ -206,12 +224,14 @@ __global__ void backprop_kernel(BackpropArgs args, const int* __restrict__ path_
       const float ev_old = (float)visit[e];
       const float es_new = vsum[e] + delta;
       vsum[e] = es_new;
-      visit[e] = visit[e] + 1;
-      nval = es_new / (ev_old + 1.f);
+      // Pre-marked: the descent already counted this visit, so the count
+      // read is the new one.
+      if (!args.pre_marked) visit[e] = visit[e] + 1;
+      nval = es_new / (args.pre_marked ? fmaxf(ev_old, 1.f) : ev_old + 1.f);
       nrew = reward[e];
     } else {  // the root keeps explicit scalars
       rvsum = rvsum + delta;
-      rvis = rvis + 1;
+      if (!args.pre_marked) rvis = rvis + 1;
       nval = rvsum / (float)max(rvis, 1);
       nrew = root_reward[b];
     }
@@ -236,16 +256,13 @@ extern "C" const char* mcts_kernels_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Descend B planar trees on `stream`. Device pointers throughout;
-// depth_bound points at one int on the device. Returns a cudaError_t.
-extern "C" int mcts_descend_planar(const int* depth_bound, const int* child, const float* prior,
-                                   const int* visit, const float* vsum, const float* reward,
-                                   const int* legal, const float* min_value,
-                                   const float* max_value, int* out_parent, int* out_action,
-                                   int* out_depth, int* path_n, int* path_a, int B, int A,
-                                   int N, int D, int sim, float pb_c_base, float pb_c_init,
-                                   float disc_sign, float jitter_scale, unsigned long long seed,
-                                   void* stream) {
+static int launch_descend(bool planar, bool mark, const int* depth_bound, const int* child,
+                          const float* prior, int* visit, const float* vsum, const float* reward,
+                          const int* legal, const float* min_value, const float* max_value,
+                          int* out_parent, int* out_action, int* out_depth, int* path_n,
+                          int* path_a, int B, int A, int N, int D, int sim, float pb_c_base,
+                          float pb_c_init, float disc_sign, float jitter_scale,
+                          unsigned long long seed, void* stream) {
   if (B <= 0) return 0;
   DescendArgs args;
   args.B = B;
@@ -260,14 +277,58 @@ extern "C" int mcts_descend_planar(const int* depth_bound, const int* child, con
   args.key0 = (uint32_t)(seed & 0xffffffffull);
   args.key1 = (uint32_t)(seed >> 32);
   const int blocks = (B + kDescendLanesPerBlock - 1) / kDescendLanesPerBlock;
-  descend_planar_kernel<<<blocks, 32 * kDescendLanesPerBlock, 0, (cudaStream_t)stream>>>(
-      args, depth_bound, child, prior, visit, vsum, reward, legal, min_value, max_value,
-      out_parent, out_action, out_depth, path_n, path_a);
+  const int threads = 32 * kDescendLanesPerBlock;
+  cudaStream_t s = (cudaStream_t)stream;
+#define MCTS_DESCEND(P, M)                                                                     \
+  descend_kernel<P, M><<<blocks, threads, 0, s>>>(args, depth_bound, child, prior, visit, vsum, \
+                                                  reward, legal, min_value, max_value,          \
+                                                  out_parent, out_action, out_depth, path_n,    \
+                                                  path_a)
+  if (!planar)
+    MCTS_DESCEND(false, false);
+  else if (mark)
+    MCTS_DESCEND(true, true);
+  else
+    MCTS_DESCEND(true, false);
+#undef MCTS_DESCEND
   return (int)cudaGetLastError();
 }
 
+// Descend B planar trees on `stream`; with mark_visits, +1 on every edge
+// taken, in place on `visit`. Device pointers throughout; depth_bound points
+// at one int on the device. Returns a cudaError_t.
+extern "C" int mcts_descend_planar(const int* depth_bound, const int* child, const float* prior,
+                                   int* visit, const float* vsum, const float* reward,
+                                   const int* legal, const float* min_value,
+                                   const float* max_value, int* out_parent, int* out_action,
+                                   int* out_depth, int* path_n, int* path_a, int B, int A,
+                                   int N, int D, int sim, int mark_visits, float pb_c_base,
+                                   float pb_c_init, float disc_sign, float jitter_scale,
+                                   unsigned long long seed, void* stream) {
+  return launch_descend(true, mark_visits != 0, depth_bound, child, prior, visit, vsum, reward,
+                        legal, min_value, max_value, out_parent, out_action, out_depth, path_n,
+                        path_a, B, A, N, D, sim, pb_c_base, pb_c_init, disc_sign, jitter_scale,
+                        seed, stream);
+}
+
+// Descend B node-major [B, N, A] trees on `stream`, as mcts_descend_planar
+// without the mark (visit is only read). Returns a cudaError_t.
+extern "C" int mcts_descend(const int* depth_bound, const int* child, const float* prior,
+                            const int* visit, const float* vsum, const float* reward,
+                            const int* legal, const float* min_value, const float* max_value,
+                            int* out_parent, int* out_action, int* out_depth, int* path_n,
+                            int* path_a, int B, int A, int N, int D, int sim, float pb_c_base,
+                            float pb_c_init, float disc_sign, float jitter_scale,
+                            unsigned long long seed, void* stream) {
+  return launch_descend(false, false, depth_bound, child, prior, const_cast<int*>(visit), vsum,
+                        reward, legal, min_value, max_value, out_parent, out_action, out_depth,
+                        path_n, path_a, B, A, N, D, sim, pb_c_base, pb_c_init, disc_sign,
+                        jitter_scale, seed, stream);
+}
+
 // Back up B leaf values on `stream`, in place on visit, vsum, root_visit,
-// root_vsum, min_value and max_value. Device pointers throughout. Returns a
+// root_vsum, min_value and max_value (pre_marked: vsum, root_vsum and the
+// min/max only). Device pointers throughout. Returns a
 // cudaError_t.
 // The pointers come in the wrapper's argument order (ops/mcts_kernels.py
 // backprop).
@@ -276,7 +337,8 @@ extern "C" int mcts_backprop(const int* path_n, const int* path_a, const int* le
                              const float* reward, int* root_visit, float* root_vsum,
                              const float* root_reward, float* min_value, float* max_value,
                              int B, int D, int NA, int stride_n, int stride_a,
-                             int num_players, float discount, float disc_sign, void* stream) {
+                             int num_players, int pre_marked, float discount, float disc_sign,
+                             void* stream) {
   if (B <= 0) return 0;
   BackpropArgs args;
   args.B = B;
@@ -285,6 +347,7 @@ extern "C" int mcts_backprop(const int* path_n, const int* path_a, const int* le
   args.stride_n = stride_n;
   args.stride_a = stride_a;
   args.num_players = num_players;
+  args.pre_marked = pre_marked != 0;
   args.discount = discount;
   args.disc_sign = disc_sign;
   const int blocks = (B + kBackpropThreads - 1) / kBackpropThreads;

@@ -52,6 +52,13 @@ _KERNELS = {
             "mcts_descend_planar": (
                 ctypes.c_int,
                 [ctypes.c_void_p] * 14
+                + [ctypes.c_int] * 6
+                + [ctypes.c_float] * 4
+                + [ctypes.c_ulonglong, ctypes.c_void_p],
+            ),
+            "mcts_descend": (
+                ctypes.c_int,
+                [ctypes.c_void_p] * 14
                 + [ctypes.c_int] * 5
                 + [ctypes.c_float] * 4
                 + [ctypes.c_ulonglong, ctypes.c_void_p],
@@ -59,7 +66,7 @@ _KERNELS = {
             "mcts_backprop": (
                 ctypes.c_int,
                 [ctypes.c_void_p] * 12
-                + [ctypes.c_int] * 6
+                + [ctypes.c_int] * 7
                 + [ctypes.c_float] * 2
                 + [ctypes.c_void_p],
             ),
@@ -84,6 +91,17 @@ _KERNELS = {
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
             ),
             "mcts_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        },
+    },
+    "hidden_store": {
+        # A pure copy, built with the package's common flags.
+        "flags": ["--fmad=false"],
+        "api": {
+            "mcts_write_node_hidden": (
+                ctypes.c_int,
+                [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p],
+            ),
+            "hidden_store_error_string": (ctypes.c_char_p, [ctypes.c_int]),
         },
     },
 }

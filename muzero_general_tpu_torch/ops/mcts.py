@@ -30,14 +30,23 @@ chooses between XLA, its planar Pallas kernels and its streaming ones:
   backprop as one reverse associative scan over the path
   (_backprop_vectorized), as the JAX package's XLA path.
 
-The hidden store is node-major [N, B, ...]. The JAX package defers each
-leaf's store write to the next simulation (`_flush_pending`), only to keep
-XLA from copying the store; here each leaf's row is written in place at once.
-The results are the same: node s+1 is reachable only from simulation s+1 on.
+Multi-leaf rounds (SearchSpec.batch_leaves = K > 1, config
+`search_batch_leaves`; JAX ops/mcts.py _run_rounds_multileaf): each round
+makes K selections with virtual visits marked between them (in the descend
+kernel on the kernel route, by `_apply_virtual_marks` on the plain-op route),
+then one recurrent inference over the K * B leaves, one batched expansion
+(a selection that repeats an earlier one of its round writes onto its own
+orphan node row instead) and the backprop of the K paths with the visits
+pre-marked: K backprop launches on the kernel route, one multi-path
+`_backprop_vectorized` on the plain-op route. The stream route is K = 1
+only, as in the JAX package.
 
-Not ported: multi-leaf rounds (ROADMAP module item 14);
-SearchSpec.from_config raises NotImplementedError where the JAX package
-would take them.
+The hidden store is node-major [N, B, ...]. The JAX package defers each
+leaf's store write to the next simulation (`_flush_pending`), and at K > 1
+the K rows of a round to the next round's start as one block, only to keep
+XLA from copying the store; here each leaf's row (each round's K rows) is
+written in place at once. The results are the same: the nodes a simulation
+(a round) expands are reachable only from the next one on.
 """
 
 import math
@@ -45,6 +54,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.ops import mcts_kernels
 from muzero_general_tpu_torch.ops.philox import TIE_JITTER
 from muzero_general_tpu_torch.ops.support import support_to_scalar
@@ -83,6 +93,11 @@ class SearchSpec(NamedTuple):
     # The stream kernels on the packed slab (config use_stream_mcts), for
     # trees the planar kernels refuse, where the JAX package streams them.
     use_stream: bool = False
+    # Multi-leaf rounds: K selections with virtual-visit marks between them,
+    # one network call over the K leaves (config search_batch_leaves). K = 1
+    # is the reference search; K > 1 approximates it (in-flight marks steer
+    # a round's later selections before the values land).
+    batch_leaves: int = 1
 
     @property
     def tie_jitter(self) -> float:
@@ -90,15 +105,13 @@ class SearchSpec(NamedTuple):
         return 0.0 if self.deterministic_tie_break else TIE_JITTER
 
     @classmethod
-    def from_config(cls, config, batch_size=None, device="cpu"):
+    def from_config(cls, config, batch_size=None, device=None):
         """The JAX package's SearchSpec.from_config: the kernel route where
         `use_pallas_mcts` resolves on `device` and the tree fits the JAX
         package's planar and backprop kernels at `batch_size` lanes; else,
-        for batch_size >= 8 where `use_stream_mcts` resolves too, the stream
-        route.
-
-        Raises NotImplementedError for multi-leaf rounds
-        (search_batch_leaves > 1), which are not ported."""
+        for one leaf per simulation, batch_size >= 8 and `use_stream_mcts`
+        resolving too, the stream route. device=None means the card
+        (device.resolve_device), as at every entry point of the port."""
         if len(config.players) > 2:
             raise NotImplementedError("More than two player mode not implemented.")
         batch_leaves = int(getattr(config, "search_batch_leaves", 1))
@@ -107,11 +120,8 @@ class SearchSpec(NamedTuple):
                 "search_batch_leaves must be >= 1 and divide num_simulations "
                 f"(got {batch_leaves} for {config.num_simulations} simulations)"
             )
-        if batch_leaves > 1:
-            raise NotImplementedError(
-                f"search_batch_leaves={batch_leaves}: multi-leaf search is not "
-                "ported yet (ROADMAP module item 14)"
-            )
+        if device is None:
+            device = resolve_device()
         use_kernels = resolve_fast_path_flag(
             getattr(config, "use_pallas_mcts", False), device
         )
@@ -124,9 +134,11 @@ class SearchSpec(NamedTuple):
                 and mcts_kernels.choose_block_backprop(batch_size, N, A) is not None
             )
             # Trees too big for the planar kernels stream instead (K = 1
-            # only; batch-1 eval lanes keep the plain-op route, as in JAX).
-            use_stream = not use_kernels and batch_size >= 8 and resolve_fast_path_flag(
-                getattr(config, "use_stream_mcts", "auto"), device
+            # only: multi-leaf rounds keep the plain-op route; batch-1 eval
+            # lanes too, as in JAX).
+            use_stream = (
+                not use_kernels and batch_leaves == 1 and batch_size >= 8
+                and resolve_fast_path_flag(getattr(config, "use_stream_mcts", "auto"), device)
             )
         return cls(
             num_simulations=config.num_simulations,
@@ -141,6 +153,7 @@ class SearchSpec(NamedTuple):
             use_kernels=use_kernels,
             capture_path_stats=config.num_simulations <= 256,
             use_stream=use_stream,
+            batch_leaves=batch_leaves,
         )
 
 
@@ -389,7 +402,8 @@ class SelectOut(NamedTuple):
 
 
 def _select_leaf(tree: Tree, generator, spec: SearchSpec, depth_bound, sim: int,
-                 seed: int, legal_i32=None, plain_kernels=False) -> SelectOut:
+                 seed: int, legal_i32=None, plain_kernels=False,
+                 mark_visits=False) -> SelectOut:
     """Descend all B trees to an unexpanded edge.
 
     depth_bound: a 0-d int32 device tensor, at least the longest descent
@@ -397,7 +411,9 @@ def _select_leaf(tree: Tree, generator, spec: SearchSpec, depth_bound, sim: int,
     kernel, which reads it on the card; the plain-op route (node-major tree)
     loops that many levels with finished lanes masked. `seed` keys the
     kernel route's tie jitter, at simulation `sim`; `plain_kernels` runs the
-    kernels' plain versions instead (the card comparisons)."""
+    kernels' plain versions instead (the card comparisons). mark_visits
+    (kernel route, multi-leaf rounds): the descent adds +1 to the visit of
+    every edge it takes, in place on tree.children_visit."""
     if spec.use_kernels:
         descend = (mcts_kernels.descend_planar_plain if plain_kernels
                    else mcts_kernels.descend_planar)
@@ -408,6 +424,7 @@ def _select_leaf(tree: Tree, generator, spec: SearchSpec, depth_bound, sim: int,
             num_players=spec.num_players, pb_c_base=spec.pb_c_base,
             pb_c_init=spec.pb_c_init, discount=spec.discount,
             max_depth=spec.max_depth, tie_jitter=spec.tie_jitter,
+            mark_visits=mark_visits,
         )
         return SelectOut(parent, action, path_n, path_a, leaf_depth)
 
@@ -545,19 +562,38 @@ def associative_scan(fn: Callable, elems, reverse=False, dim=0):
 def _backprop_vectorized(tree: Tree, path_nodes, path_actions, leaf_depth,
                          leaf_value, spec: SearchSpec, planar=False,
                          path_stats=None):
-    """Whole-path backprop of one leaf per lane with no sequential walk, in
-    place on `tree` (JAX ops/mcts.py _backprop_vectorized, K = 1).
+    """Whole-path backprop with no sequential walk, in place on `tree`
+    (JAX ops/mcts.py _backprop_vectorized).
 
     The values propagated to each depth, v(t) = s_{t+1} r_{t+1} + discount *
     v(t+1) with v(L) = leaf value, come from one reverse associative scan
     over the path; the edge updates are two scatter-adds; min/max take the
     post-update node stats in one masked reduce. planar: the slabs are
-    [B, A, N]. path_stats [B, D, 3] (captured by the descent, leaf-edge
+    [B, A, N]. path_stats [..., D, 3] (captured by the descent, leaf-edge
     reward patched): used instead of gathering the slabs.
+
+    Multi-leaf rounds pass path_nodes, path_actions [K, B, D] and
+    leaf_depth, leaf_value [K, B]: the paths' visits and the roots' were
+    already counted by virtual marks (JAX's pre_marked), so only value sums
+    are added and the visit counts read are taken as the post-update ones;
+    all K paths fold in with one pair of scatter-adds, and each path's node
+    values are taken against the value sums from before the round, as in
+    the JAX package.
     """
-    B, D = path_nodes.shape
+    pre_marked = path_nodes.dim() == 3
     dev = path_nodes.device
-    bcol = torch.arange(B, device=dev)[:, None]
+    if pre_marked:
+        K, B, D = path_nodes.shape
+        path_nodes = path_nodes.reshape(K * B, D)
+        path_actions = path_actions.reshape(K * B, D)
+        leaf_depth = leaf_depth.reshape(K * B)
+        leaf_value = leaf_value.reshape(K * B)
+        bcol = torch.arange(B, device=dev).repeat(K)[:, None]
+    else:
+        K = 1
+        B, D = path_nodes.shape
+        bcol = torch.arange(B, device=dev)[:, None]
+    M = K * B
     t_idx = torch.arange(D, device=dev)[None, :]
     L = leaf_depth.long()[:, None]
     sign = 1.0 if spec.num_players == 1 else -1.0
@@ -569,9 +605,10 @@ def _backprop_vectorized(tree: Tree, path_nodes, path_actions, leaf_depth,
     pa = torch.where(edge_mask, path_actions, 0).long()
     i1, i2 = (pa, pn) if planar else (pn, pa)
     if path_stats is not None:
-        r_edge = torch.where(edge_mask, path_stats[..., 0], 0.0)
-        ev_old = torch.where(edge_mask, path_stats[..., 1], 0.0)
-        es_old = torch.where(edge_mask, path_stats[..., 2], 0.0)
+        ps = path_stats.reshape(M, D, 3)
+        r_edge = torch.where(edge_mask, ps[..., 0], 0.0)
+        ev_old = torch.where(edge_mask, ps[..., 1], 0.0)
+        es_old = torch.where(edge_mask, ps[..., 2], 0.0)
     else:
         r_edge = tree.children_reward[bcol, i1, i2]
         ev_old = tree.children_visit[bcol, i1, i2].to(torch.float32)
@@ -579,8 +616,8 @@ def _backprop_vectorized(tree: Tree, path_nodes, path_actions, leaf_depth,
 
     # node_to_play == the leaf's player <=> t == L (mod num_players)
     if spec.num_players == 1:
-        same = torch.ones((B, D), dtype=torch.bool, device=dev)
-        s_next = torch.ones((B, D), device=dev)
+        same = torch.ones((M, D), dtype=torch.bool, device=dev)
+        s_next = torch.ones((M, D), device=dev)
     else:
         same = ((L - t_idx) % 2) == 0
         s_next = torch.where(((L - (t_idx + 1)) % 2) == 0, -1.0, 1.0)
@@ -607,9 +644,10 @@ def _backprop_vectorized(tree: Tree, path_nodes, path_actions, leaf_depth,
     # ---- min/max over the post-update node stats (pre-update reads) -----
     # The node at depth t >= 1 owns edge t-1's stats; depth 0 is the root.
     def node_shift(edge_arr, root_col):
-        return torch.cat([root_col[:, None], edge_arr[:, :-1]], dim=1)
+        return torch.cat([root_col.repeat(K)[:, None], edge_arr[:, :-1]], dim=1)
 
-    nvis = node_shift(ev_old, tree.root_visit.to(torch.float32)) + 1.0
+    visit_inc = 0.0 if pre_marked else 1.0
+    nvis = node_shift(ev_old, tree.root_visit.to(torch.float32)) + visit_inc
     nsum = node_shift(es_old, tree.root_vsum)
     nrew = node_shift(r_edge, tree.root_reward)
     node_val = (nsum + delta) / torch.clamp(nvis, min=1.0)
@@ -617,18 +655,144 @@ def _backprop_vectorized(tree: Tree, path_nodes, path_actions, leaf_depth,
     big = torch.finfo(torch.float32).max
     stat_min = torch.amin(torch.where(node_mask, stat, big), dim=1)
     stat_max = torch.amax(torch.where(node_mask, stat, -big), dim=1)
+    delta0 = delta[:, 0]
+    if pre_marked:
+        stat_min = stat_min.reshape(K, B).amin(0)
+        stat_max = stat_max.reshape(K, B).amax(0)
+        delta0 = delta0.reshape(K, B).sum(0)
 
-    # ---- scatters: edge j gets node (j+1)'s delta ------------------------
-    edge_delta = torch.cat([delta[:, 1:], torch.zeros((B, 1), device=dev)], dim=1)
-    bidx = bcol.expand(B, D)
+    # ---- scatters: edge j gets node (j+1)'s delta (repeated targets of the
+    # K paths accumulate) -------------------------------------------------
+    edge_delta = torch.cat([delta[:, 1:], torch.zeros((M, 1), device=dev)], dim=1)
+    bidx = bcol.expand(M, D)
     tree.children_vsum.index_put_(
         (bidx, i1, i2), torch.where(edge_mask, edge_delta, 0.0), accumulate=True)
-    tree.children_visit.index_put_(
-        (bidx, i1, i2), edge_mask.to(torch.int32), accumulate=True)
-    tree.root_visit.add_(1)
-    tree.root_vsum.add_(delta[:, 0])
+    if not pre_marked:
+        tree.children_visit.index_put_(
+            (bidx, i1, i2), edge_mask.to(torch.int32), accumulate=True)
+        tree.root_visit.add_(1)
+    tree.root_vsum.add_(delta0)
     torch.minimum(tree.min_value, stat_min, out=tree.min_value)
     torch.maximum(tree.max_value, stat_max, out=tree.max_value)
+
+
+def _apply_virtual_marks(tree: Tree, path_nodes, path_actions, leaf_depth, planar=False):
+    """Virtual-visit marking (JAX ops/mcts.py:806-827): +1 visit on every
+    edge of each lane's path and on its root, in place, between the K
+    selections of a multi-leaf round, so the later ones are steered away
+    from leaves in flight; their backprops then run pre-marked. planar: the
+    slabs are [B, A, N]."""
+    B, D = path_nodes.shape
+    bcol = torch.arange(B, device=path_nodes.device)[:, None].expand(B, D)
+    t_idx = torch.arange(D, device=path_nodes.device)[None, :]
+    edge_mask = t_idx < leaf_depth.long()[:, None]
+    pn = torch.where(edge_mask, path_nodes, 0).long()
+    pa = torch.where(edge_mask, path_actions, 0).long()
+    i1, i2 = (pa, pn) if planar else (pn, pa)
+    tree.children_visit.index_put_((bcol, i1, i2), edge_mask.to(torch.int32),
+                                   accumulate=True)
+    tree.root_visit.add_(1)
+
+
+def _run_rounds_multileaf(tree: Tree, hidden, spec: SearchSpec, recurrent_fn, steps: int,
+                          generator, seed, legal_i32, plain_kernels: bool):
+    """steps / K rounds of K leaves each (JAX ops/mcts.py:830-1005), in
+    place on `tree` and `hidden`. Per round:
+
+    1. K selections with virtual-visit marks between them: in the descend
+       kernel on the kernel route (the root's counter outside it, JAX
+       :891-896), by _apply_virtual_marks on the plain-op route, whose
+       captured path stats are taken before the selection's own mark;
+    2. one gather of the K parents' hidden rows and one recurrent inference
+       over the K * B leaves; their hidden rows written at once;
+    3. one batched expansion of nodes r*K+1 .. r*K+K. A selection that takes
+       the same unexpanded edge as an earlier one of its round does not
+       expand it again: it writes onto its own node row (a self-loop at
+       action 0 of a node nothing links to, JAX :931-952), keeping its value
+       credit in the backprop;
+    4. the backprop with the visits pre-marked: K backprop launches on the
+       kernel route (JAX :955-979); on the plain-op route one multi-path
+       _backprop_vectorized, each path's leaf-edge reward patched with its
+       own network reward (JAX :981-995).
+
+    Returns the max tree depth [B]."""
+    K = spec.batch_leaves
+    B, A = tree.root_legal.shape
+    dev = hidden.device
+    b_idx = torch.arange(B, device=dev)
+    bcol = b_idx[None].expand(K, B)
+    planar = spec.use_kernels
+    max_depth = torch.zeros((B,), dtype=torch.int32, device=dev)
+    backprop = mcts_kernels.backprop_plain if plain_kernels else mcts_kernels.backprop
+    for r in range(steps // K):
+        # A round's selections see no new expansions: one bound serves all K.
+        depth_bound = torch.amax(max_depth) + 1
+        sels = []
+        for k in range(K):
+            sim = r * K + k
+            if spec.use_kernels:
+                s = _select_leaf(tree, generator, spec, depth_bound, sim, seed, legal_i32,
+                                 plain_kernels, mark_visits=True)
+                tree.root_visit.add_(1)
+            else:
+                s = _select_leaf(tree, generator, spec, depth_bound, sim, seed)
+                _apply_virtual_marks(tree, s.path_nodes, s.path_actions, s.leaf_depth)
+            sels.append(s)
+        parents = torch.stack([s.parent for s in sels]).long()  # [K, B]
+        actions = torch.stack([s.action for s in sels]).long()
+        leaf_depth = torch.stack([s.leaf_depth for s in sels])  # [K, B]
+
+        # ---- one hidden gather, one recurrent inference -------------------
+        ph = hidden[parents, bcol]  # [K, B, ...]
+        value_logits, reward_logits, policy_logits, h2 = recurrent_fn(
+            ph.reshape((K * B,) + tuple(ph.shape[2:])), actions.reshape(-1))
+        leaf_values = support_to_scalar(value_logits, spec.support_size).reshape(K, B)
+        leaf_rewards = support_to_scalar(reward_logits, spec.support_size).reshape(K, B)
+        priors = torch.softmax(policy_logits, dim=-1).reshape(K, B, A)
+        new_nodes = r * K + 1 + torch.arange(K, device=dev)
+        hidden[new_nodes] = h2.reshape((K, B) + tuple(h2.shape[1:]))
+
+        # ---- duplicate selections: the first of a round keeps the edge ----
+        eid = parents * A + actions
+        keep = torch.ones((K, B), dtype=torch.bool, device=dev)
+        for k in range(1, K):
+            keep[k] = ~(eid[:k] == eid[k]).any(0)
+
+        # ---- one batched expansion ----------------------------------------
+        nn2 = new_nodes[:, None].expand(K, B)
+        p_t = torch.where(keep, parents, nn2)
+        a_t = torch.where(keep, actions, 0)
+        i1, i2 = (a_t, p_t) if planar else (p_t, a_t)
+        tree.children_index[bcol, i1, i2] = nn2.to(torch.int32)
+        tree.children_reward[bcol, i1, i2] = torch.where(keep, leaf_rewards, 0.0)
+        if planar:
+            tree.children_prior[:, :, new_nodes] = priors.permute(1, 2, 0)
+        else:
+            tree.children_prior[:, new_nodes] = priors.permute(1, 0, 2)
+
+        # ---- the backprop of the K paths, visits pre-marked ----------------
+        if spec.use_kernels:
+            for k, s in enumerate(sels):
+                backprop(
+                    s.path_nodes, s.path_actions, s.leaf_depth, leaf_values[k],
+                    tree.children_visit, tree.children_vsum, tree.children_reward,
+                    tree.root_visit, tree.root_vsum, tree.root_reward,
+                    tree.min_value, tree.max_value,
+                    num_players=spec.num_players, discount=spec.discount, planar=True,
+                    pre_marked=True,
+                )
+        else:
+            ps = None
+            if sels[0].path_stats is not None:
+                ps = torch.stack([s.path_stats for s in sels])  # [K, B, D, 3]
+                kcol = torch.arange(K, device=dev)[:, None]
+                ps[kcol, bcol, leaf_depth.long() - 1, 0] = leaf_rewards
+            _backprop_vectorized(
+                tree, torch.stack([s.path_nodes for s in sels]),
+                torch.stack([s.path_actions for s in sels]), leaf_depth, leaf_values, spec,
+                path_stats=ps)
+        max_depth = torch.maximum(max_depth, torch.amax(leaf_depth, 0))
+    return max_depth
 
 
 def _run_stream(tree: Tree, hidden, max_depth, spec: SearchSpec, recurrent_fn, steps: int,
@@ -691,8 +855,8 @@ def run_mcts(
     num_steps: Optional[int] = None,
     plain_kernels: bool = False,
 ) -> MCTSOutput:
-    """Batched MCTS from `observation` [B, ...] (JAX ops/mcts.py run_mcts,
-    one leaf per simulation).
+    """Batched MCTS from `observation` [B, ...] (JAX ops/mcts.py run_mcts):
+    one leaf per simulation, or multi-leaf rounds (spec.batch_leaves).
 
     initial_fn(obs) -> (value_logits, reward_logits, policy_logits, hidden);
     recurrent_fn(hidden, action) -> the same. legal_mask [B, A] bool: legal
@@ -702,7 +866,7 @@ def run_mcts(
     kernel and stream routes' tie-jitter key (default: drawn from
     `generator`).
     num_steps: stop after that many of the spec's simulations (a mid-search
-    tree). plain_kernels: the kernel and stream routes run the kernels'
+    tree; a multiple of spec.batch_leaves). plain_kernels: the kernel and stream routes run the kernels'
     plain versions (the card comparisons).
     """
     B, A = legal_mask.shape
@@ -733,7 +897,13 @@ def run_mcts(
     hidden[0] = hidden0
     max_depth = torch.zeros((B,), dtype=torch.int32, device=dev)
     steps = spec.num_simulations if num_steps is None else num_steps
-    if spec.use_stream:
+    if spec.batch_leaves > 1:
+        if steps % spec.batch_leaves:
+            raise ValueError(f"num_steps={steps} is not a multiple of batch_leaves="
+                             f"{spec.batch_leaves}")
+        max_depth = _run_rounds_multileaf(tree, hidden, spec, recurrent_fn, steps, generator,
+                                          seed, legal_i32, plain_kernels)
+    elif spec.use_stream:
         tree, max_depth = _run_stream(tree, hidden, max_depth, spec, recurrent_fn, steps,
                                       seed, legal_i32, plain_kernels)
     else:

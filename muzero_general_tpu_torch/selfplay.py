@@ -11,16 +11,17 @@ fused single-kernel search (ops/mcts_fused.py) unless `use_fused_search` is
 False, everything else to the staged search (ops/mcts.py run_mcts), whose
 descent and backprop run as kernels where SearchSpec.from_config engages
 them: the planar kernels for trees that fit them (connect4), the stream
-kernels for bigger ones (gomoku). A ResNet's batch norms are folded into its
-convs once per play_chunk (`fold_bn_inference`).
+kernels for bigger ones (gomoku). `search_batch_leaves` > 1 runs the staged
+search in multi-leaf rounds; FC networks on the fused search ignore it, as
+the JAX driver's fused route does (JAX selfplay.py:99-113). A ResNet's batch
+norms are folded into its convs once per play_chunk (`fold_bn_inference`).
 
 Evaluation is folded in as greedy lanes: lanes [0, greedy_lanes) play at
 temperature 0 inside the same batch and their episodes come back in
 stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
 
 Not ported yet, and refused with NotImplementedError: Gumbel search (ROADMAP
-module item 16), multi-leaf search (item 14), bf16 search activations (item
-12).
+module item 16) and bf16 search activations (item 12).
 The mesh/dp sharding of lanes (item 19) is not ported either.
 """
 
@@ -85,7 +86,6 @@ class SelfPlayDriver:
         self.config = config
         self.G = num_games or config.parallel_games
         self.greedy_lanes = greedy_lanes
-        # Raises for multi-leaf configurations.
         self.spec = mcts_ops.SearchSpec.from_config(config, self.G, self.device)
         # The fused single-kernel search takes FC networks ("auto" and True,
         # on CPU tensors through its plain version); False, and every ResNet,

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-fused search (ops/mcts_fused.py), the staged search's planar descent and
-backprop (ops/mcts_kernels.py) and the streaming search's descent and edge
-updates (ops/mcts_stream.py).
+fused search (ops/mcts_fused.py), the staged search's descents (planar, with
+and without the virtual-visit mark, and node-major) and backprop (with and
+without pre-marked visits; ops/mcts_kernels.py), the streaming search's
+descent and edge updates (ops/mcts_stream.py) and the hidden-store row
+write (ops/hidden_store.py).
 
 Every test here carries the `gpu` marker and skips without a CUDA card. The
 file imports no JAX, so it also runs where JAX is absent; there the suite's
@@ -264,6 +266,138 @@ def test_tree_kernels_reject_bad_inputs(cuda):
                               tree.children_vsum, tree.children_reward, tree.root_visit,
                               tree.root_vsum, tree.root_reward, tree.min_value,
                               tree.max_value, num_players=2, discount=1.0)
+
+
+def _marking_round(tree, spec, legal, bound, sim, seed, tie_jitter, fn, k_sels=4):
+    """k_sels marking descents in a row on a copy of the visit slab (the
+    round's simulations sim .. sim + k_sels - 1); returns the outputs, the
+    marked slab cloned after each."""
+    t = tree._replace(children_visit=tree.children_visit.clone())
+    outs = []
+    for k in range(k_sels):
+        args, kw = _descend_args(t, spec, legal, bound, sim + k, seed, tie_jitter)
+        out = fn(*args, mark_visits=True, **kw)
+        outs.append(out + (t.children_visit.clone(),))
+    return outs, t
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_marking_descend_kernel_matches_plain(cuda, num_players, tie_jitter):
+    tree, spec, legal, bound, sim = _tree(cuda, num_players, seed=3)
+    before = (mcts_kernels.descend_planar.launches, mcts_kernels.descend_planar.marked_launches)
+    got, k_tree = _marking_round(tree, spec, legal, bound, sim, 11, tie_jitter,
+                                 mcts_kernels.descend_planar)
+    want, _ = _marking_round(tree, spec, legal, bound, sim, 11, tie_jitter,
+                             mcts_kernels.descend_planar_plain)
+    torch.cuda.synchronize()
+    after = (mcts_kernels.descend_planar.launches, mcts_kernels.descend_planar.marked_launches)
+    assert after == (before[0] + 4, before[1] + 4)
+    for g_out, w_out in zip(got, want):
+        for g, w in zip(g_out, w_out):
+            assert torch.equal(g, w)
+    marks = int((k_tree.children_visit - tree.children_visit).sum())
+    assert marks == sum(int(g[2].sum()) for g in got)
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+@pytest.mark.parametrize("planar", [True, False])
+def test_pre_marked_backprop_kernel_matches_plain(cuda, num_players, planar):
+    """A round's four paths, folded one after another into the marked tree:
+    the kernel and the plain version agree exactly, and no visit is added."""
+    tree, spec, legal, bound, sim = _tree(cuda, num_players, seed=4)
+    sels, marked = _marking_round(tree, spec, legal, bound, sim, 6, 1e-5,
+                                  mcts_kernels.descend_planar)
+    marked = marked._replace(root_visit=marked.root_visit + 4)
+    if not planar:
+        marked = mcts_ops._from_planar(marked)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    values = [torch.randn((tree.root_visit.shape[0],), generator=gen, device=cuda)
+              for _ in sels]
+    before = (mcts_kernels.backprop.launches, mcts_kernels.backprop.pre_marked_launches)
+    outs = []
+    for fn in (mcts_kernels.backprop, mcts_kernels.backprop_plain):
+        t = mcts_ops.Tree(*(x.clone() for x in marked))
+        for sel, value in zip(sels, values):
+            out = fn(sel[3], sel[4], sel[2], value, t.children_visit, t.children_vsum,
+                     t.children_reward, t.root_visit, t.root_vsum, t.root_reward,
+                     t.min_value, t.max_value, num_players=num_players,
+                     discount=spec.discount, planar=planar, pre_marked=True)
+        outs.append(out)
+    torch.cuda.synchronize()
+    after = (mcts_kernels.backprop.launches, mcts_kernels.backprop.pre_marked_launches)
+    assert after == (before[0] + 4, before[1] + 4)
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    assert torch.equal(outs[0][0], marked.children_visit)
+    assert torch.equal(outs[0][2], marked.root_visit)
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_node_major_descend_kernel_matches_plain_and_planar(cuda, num_players, tie_jitter):
+    tree, spec, legal, bound, sim = _tree(cuda, num_players, seed=5)
+    node_major = mcts_ops._from_planar(tree)
+    args, kw = _descend_args(node_major, spec, legal, bound, sim, (1 << 33) + 9, tie_jitter)
+    before = mcts_kernels.descend.launches
+    got = mcts_kernels.descend(*args, **kw)
+    want = mcts_kernels.descend_plain(*args, **kw)
+    p_args, _ = _descend_args(tree, spec, legal, bound, sim, (1 << 33) + 9, tie_jitter)
+    planar = mcts_kernels.descend_planar(*p_args, **kw)
+    torch.cuda.synchronize()
+    assert mcts_kernels.descend.launches == before + 1
+    for g, w, p in zip(got, want, planar):
+        assert torch.equal(g, w) and torch.equal(g, p)
+    assert int(got[2].min()) >= 1
+    cut = args[:2] + (torch.tensor(1, dtype=torch.int32, device=cuda),) + args[3:]
+    for g, w in zip(mcts_kernels.descend(*cut, **kw), mcts_kernels.descend_plain(*cut, **kw)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="shape"):
+        mcts_kernels.descend(*args[:3], tree.children_index, *args[4:], **kw)
+
+
+@pytest.mark.parametrize("dtype, rest", [(torch.float32, (64, 6, 7)),
+                                         (torch.float32, (3,)),
+                                         (torch.float16, (3,))])
+def test_row_write_kernel_matches_plain(cuda, dtype, rest):
+    """Rows 16-byte aligned (the uint4 path), 4-byte aligned and 2-byte
+    aligned (the narrower copies): bit-equal to the plain version, every
+    other row untouched; a node out of range writes nothing."""
+    from muzero_general_tpu_torch.ops import hidden_store
+
+    N, B = 9, 5
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    store = torch.randn((N, B) + rest, generator=gen, device=cuda).to(dtype)
+    leaf = torch.randn((B,) + rest, generator=gen, device=cuda)
+    for node in (0, 3, 5, N - 1, N, -1):
+        node_t = torch.tensor(node, dtype=torch.int32, device=cuda)
+        before = hidden_store.write_node_hidden.launches
+        got = hidden_store.write_node_hidden(store.clone(), node_t, leaf)
+        want = hidden_store.write_node_hidden_plain(store.clone(), node_t, leaf)
+        torch.cuda.synchronize()
+        assert hidden_store.write_node_hidden.launches == before + 1
+        assert torch.equal(got, want)
+        others = torch.arange(N, device=cuda) != node
+        assert torch.equal(got[others], store[others])
+    with pytest.raises(ValueError, match="node"):
+        hidden_store.write_node_hidden(store, 1, leaf)
+    with pytest.raises(ValueError, match="leaf"):
+        hidden_store.write_node_hidden(store, node_t, leaf[:, :1])
+
+
+def test_connect4_multileaf_selfplay_runs_through_the_marking_kernels(cuda):
+    cfg = connect4.MuZeroConfig()
+    cfg.blocks, cfg.channels = 1, 16
+    cfg.parallel_games, cfg.num_simulations, cfg.selfplay_chunk_moves = 16, 24, 2
+    cfg.search_batch_leaves = 4
+    driver = SelfPlayDriver(connect4.make_env(), MuZeroNetwork(cfg), cfg, seed=0)
+    assert driver.spec.use_kernels and driver.spec.batch_leaves == 4
+    d, b = mcts_kernels.descend_planar, mcts_kernels.backprop
+    before = (d.marked_launches, b.pre_marked_launches, d.launches, b.launches)
+    _, stats = driver.play(temperature=1.0)
+    after = (d.marked_launches, b.pre_marked_launches, d.launches, b.launches)
+    assert after == tuple(x + 48 for x in before)
+    assert stats["env_steps"] == 32 and stats["max_tree_depth"] >= 2
 
 
 def test_connect4_selfplay_runs_through_the_tree_kernels(cuda):

@@ -113,7 +113,7 @@ def run_both(num_players, kernels, noise, B=8, A=5, sims=25, seed=0):
     return got, want
 
 
-def _assert_same_search(got, want):
+def _assert_same_search(got, want, root_atol=ROOT_ATOL):
     np.testing.assert_array_equal(got.root_visit_counts.numpy(),
                                   np.asarray(want.root_visit_counts))
     np.testing.assert_array_equal(got.max_tree_depth.numpy(),
@@ -128,7 +128,7 @@ def _assert_same_search(got, want):
                                    np.asarray(getattr(want.tree, name)),
                                    atol=atol, rtol=0, err_msg=name)
     np.testing.assert_allclose(got.root_value.numpy(), np.asarray(want.root_value),
-                               atol=ROOT_ATOL, rtol=0)
+                               atol=root_atol, rtol=0)
     np.testing.assert_allclose(got.root_predicted_value.numpy(),
                                np.asarray(want.root_predicted_value),
                                atol=STAT_ATOL, rtol=0)
@@ -231,6 +231,33 @@ def test_search_spec_from_config_routes_like_jax():
         assert tspec.use_stream == jspec.use_stream  # gomoku streams
         assert tspec.capture_path_stats == jspec.capture_path_stats
     assert tspec.use_stream
-    cfg.search_batch_leaves = 4
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # Multi-leaf rounds: the planar kernels where they fit, the stream route
+    # never (K = 1 only), as the JAX package routes them.
+    for jcfg in (JaxConnect4(), JaxGomoku()):
+        jcfg.use_pallas_mcts = jcfg.use_stream_mcts = True
+        jcfg.search_batch_leaves = 8
+        jspec = jax_mcts.SearchSpec.from_config(jcfg, batch_size=64)
+        tspec = torch_mcts.SearchSpec.from_config(jcfg, 64, "cuda")
+        assert tspec.batch_leaves == jspec.batch_leaves == jcfg.search_batch_leaves
+        assert tspec.use_kernels == jspec.use_pallas
+        assert tspec.use_stream == jspec.use_stream
+        assert tspec.capture_path_stats == jspec.capture_path_stats
+    assert not tspec.use_stream and not tspec.use_kernels  # gomoku: the plain-op route
+    cfg.search_batch_leaves = 8
+    spec = torch_mcts.SearchSpec.from_config(cfg, 256, "cuda")
+    assert spec.use_kernels and spec.batch_leaves == 8
+    cfg.search_batch_leaves = 7  # does not divide 200
+    with pytest.raises(ValueError, match="divide"):
         torch_mcts.SearchSpec.from_config(cfg, 256, "cuda")
+
+
+def test_search_spec_from_config_defaults_to_the_card():
+    """device=None means the card, as at every entry point: without one it
+    raises instead of quietly taking the CPU's plain-op route."""
+    from muzero_general_tpu_torch.games.connect4 import MuZeroConfig
+
+    if torch.cuda.is_available():
+        assert torch_mcts.SearchSpec.from_config(MuZeroConfig(), 256).use_kernels
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            torch_mcts.SearchSpec.from_config(MuZeroConfig(), 256)

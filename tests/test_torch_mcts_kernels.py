@@ -179,3 +179,129 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
                           p["root_vsum"], p["root_reward"], p["min_value"],
                           p["max_value"], num_players=2, discount=1.0)
     assert mcts_kernels.backprop.launches == before
+
+
+def _torch_tree(tree):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in tree.items()}
+
+
+def _marking_round(tree, depth_bound, spec, k_sels):
+    """k_sels marking descents in a row, each seeing the marks before it, on
+    both sides: the JAX kernel in interpret mode (the marked slab fed on)
+    and the port's plain version (in place). Returns both sides' outputs
+    and the port's planar tree."""
+    p = _planar(tree)
+    kw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
+              pb_c_init=spec.pb_c_init, discount=spec.discount, max_depth=SIMS)
+    jslabs = {k: jnp.asarray(p[k]) for k in SLABS}
+    t = _torch_tree(p)
+    wants, gots = [], []
+    for k in range(k_sels):
+        want = mcts_pallas.descend_planar(
+            0, depth_bound, *(jslabs[n] for n in SLABS), jnp.asarray(p["root_legal"]),
+            jnp.asarray(p["min_value"]), jnp.asarray(p["max_value"]), A=A, tie_jitter=0.0,
+            interpret=True, mark_visits=True, **kw)
+        jslabs["children_visit"] = want[5]
+        wants.append([np.asarray(w) for w in want])
+        got = mcts_kernels.descend_planar_plain(
+            123, k, torch.tensor(depth_bound, dtype=torch.int32), *(t[n] for n in SLABS),
+            t["root_legal"].to(torch.int32), t["min_value"], t["max_value"],
+            mark_visits=True, **kw)
+        gots.append(got + (t["children_visit"].clone(),))  # marked in place
+    return gots, wants, t
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_marking_descend_plain_matches_pallas_interpret(num_players):
+    """descend_planar_plain(mark_visits=True) against the JAX kernel's
+    marking mode, over one round of four selections: every output and the
+    marked visit slab exact, the marks in place, one per edge taken."""
+    tree, max_depth, spec = _jax_tree(num_players, seed=20 + num_players)
+    before = torch.from_numpy(np.ascontiguousarray(_planar(tree)["children_visit"]))
+    gots, wants, t = _marking_round(tree, max_depth + 1, spec, 4)
+    names = ("parent", "action", "leaf_depth", "path_n", "path_a", "marked_visit")
+    for got, want in zip(gots, wants):
+        for name, g, w in zip(names, got, want):
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    marks = int((t["children_visit"] - before).sum())
+    assert marks == sum(int(g[2].sum()) for g in gots)
+    # The marks steer: a round's selections do not all repeat the first.
+    assert any(not torch.equal(g[4], gots[0][4]) for g in gots[1:])
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_pre_marked_backprop_plain_matches_pallas_interpret(num_players, planar):
+    """backprop_plain(pre_marked=True) against the JAX kernel's pre-marked
+    mode, the round's four paths folded one after another into the marked
+    tree: no visit added, value sums and min/max as the kernel (to RTOL with
+    one player, see the module docstring; each step then goes on from the
+    JAX side's tensors, so that the rounding of one step is not carried
+    into the next)."""
+    tree, max_depth, spec = _jax_tree(num_players, seed=30 + num_players)
+    gots, _, t = _marking_round(tree, max_depth + 1, spec, 4)
+    t["root_visit"] += 4  # the round's root marks, outside the kernel
+    if not planar:
+        t = {k: (v.transpose(1, 2).contiguous() if k in SLABS else v) for k, v in t.items()}
+    names = ("children_visit", "children_vsum", "root_visit", "root_vsum", "min_value",
+             "max_value")
+    ins = [t[n] for n in ("children_visit", "children_vsum", "children_reward", "root_visit",
+                          "root_vsum", "root_reward", "min_value", "max_value")]
+    # Copies: JAX on the CPU may alias a NumPy buffer, and its dispatch is
+    # asynchronous, so the in-place plain backprop below would race the
+    # kernel's reads of its inputs.
+    jins = [jnp.asarray(x.numpy().copy()) for x in ins]
+    visits = ins[0].clone(), ins[3].clone()
+    rng = np.random.default_rng(num_players)
+    for got in gots:
+        path_n, path_a, leaf_depth = got[3], got[4], got[2]
+        leaf_value = torch.from_numpy(rng.normal(size=B).astype(np.float32))
+        out = mcts_pallas.backprop(
+            jnp.asarray(path_n.numpy()), jnp.asarray(path_a.numpy()),
+            jnp.asarray(leaf_depth.numpy()), jnp.asarray(leaf_value.numpy()), *jins,
+            num_players=num_players, discount=spec.discount, interpret=True,
+            planar=planar, pre_marked=True)
+        jins[0], jins[1], jins[3], jins[4], jins[6], jins[7] = out
+        mcts_kernels.backprop_plain(path_n, path_a, leaf_depth, leaf_value, *ins,
+                                    num_players=num_players, discount=spec.discount,
+                                    planar=planar, pre_marked=True)
+        for name, i in zip(names, (0, 1, 3, 4, 6, 7)):
+            w = np.asarray(jins[i])
+            if "visit" in name or num_players == 2:
+                np.testing.assert_array_equal(ins[i].numpy(), w, err_msg=name)
+            else:
+                np.testing.assert_allclose(ins[i].numpy(), w, rtol=RTOL, atol=0,
+                                           err_msg=name)
+            ins[i].copy_(torch.from_numpy(w.copy()))
+    assert torch.equal(ins[0], visits[0]) and torch.equal(ins[3], visits[1])
+
+
+@pytest.mark.parametrize("bound", ["tree", 2])
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_node_major_descend_plain_matches_pallas_interpret(num_players, bound):
+    """descend_plain (node-major [B, N, A]) against mcts_pallas.descend in
+    interpret mode, exact; and against the planar plain descent on the same
+    tree with tie jitter on, bit for bit."""
+    tree, max_depth, spec = _jax_tree(num_players, seed=40 + num_players)
+    depth_bound = max_depth + 1 if bound == "tree" else bound
+    kw = dict(num_players=num_players, pb_c_base=spec.pb_c_base, pb_c_init=spec.pb_c_init,
+              discount=spec.discount, max_depth=SIMS)
+    want = mcts_pallas.descend(
+        0, depth_bound, *(jnp.asarray(tree[k]) for k in SLABS),
+        jnp.asarray(tree["root_legal"]), jnp.asarray(tree["min_value"]),
+        jnp.asarray(tree["max_value"]), A=A, tie_jitter=0.0, interpret=True, **kw)
+    t = _torch_tree(tree)
+    args = (torch.tensor(depth_bound, dtype=torch.int32), *(t[k] for k in SLABS),
+            t["root_legal"].to(torch.int32), t["min_value"], t["max_value"])
+    got = mcts_kernels.descend_plain(5, 9, *args, **kw)
+    for name, g, w in zip(("parent", "action", "leaf_depth", "path_n", "path_a"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    if bound == 2:
+        assert bool((got[2] == -1).any())
+    p = _torch_tree(_planar(tree))
+    pargs = (args[0], *(p[k] for k in SLABS), *args[6:])
+    for jitter in (0.0, 1e-5):
+        node_major = mcts_kernels.descend(5, 9, *args, tie_jitter=jitter, **kw)
+        planar = mcts_kernels.descend_planar(5, 9, *pargs, tie_jitter=jitter, **kw)
+        for g, w in zip(node_major, planar):
+            assert torch.equal(g, w)

@@ -128,9 +128,19 @@ def test_driver_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 16"):
         SelfPlayDriver(env, net, cfg, device="cpu")
     cfg.use_gumbel_mcts = False
+    # Multi-leaf rounds: FC nets on the fused search ignore K, as the JAX
+    # driver does; the staged search takes it.
     cfg.search_batch_leaves = 2
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SelfPlayDriver(env, net, cfg, device="cpu")
+    driver = SelfPlayDriver(env, net, cfg, device="cpu")
+    assert driver.use_fused and driver.spec.batch_leaves == 2
+    _, stats = driver.play(temperature=1.0, num_moves=2)
+    assert stats["env_steps"] == 2 * cfg.parallel_games
+    cfg.use_fused_search = False
+    driver = SelfPlayDriver(env, net, cfg, device="cpu")
+    assert not driver.use_fused and driver.spec.batch_leaves == 2
+    rec = driver.play_chunk(1.0, 2)
+    assert bool((rec.child_visits.sum(-1) - 1).abs().max() < 1e-5)
+    cfg.use_fused_search = "auto"
     cfg.search_batch_leaves = 1
     cfg.search_bf16_activations = True
     with pytest.raises(NotImplementedError, match="item 12"):
