@@ -6,9 +6,9 @@
 In order, it:
 1. prints the card's name and power limit;
 2. builds every kernel (csrc/mcts_fused.cu, csrc/mcts_kernels.cu,
-   csrc/mcts_stream.cu and csrc/hidden_store.cu) from the checkout, one nvcc
-   each, started together, and prints the build times and ptxas'
-   register/shared-memory report;
+   csrc/mcts_stream.cu, csrc/hidden_store.cu, csrc/conv_probe.cu and
+   csrc/stream_probe.cu) from the checkout, one nvcc each, started together,
+   and prints the build times and ptxas' register/shared-memory report;
 3. the cartpole path (FC net, the fused-search kernel):
    a. holds the kernel against its plain PyTorch version (search_plain), tie
       jitter 0, in three cases: cartpole with the pretrained weights and
@@ -79,7 +79,23 @@ In order, it:
    c. at the 64 mid-game roots the driver reached, runs the whole
       400-simulation search on the kernel route and on the plain versions,
       as in 4c;
-9. prints one {"kernels": [...]} JSON line, then ends with
+9. the conv probe (kernels 8 and 9, the counterpart of tools/conv_probe.py)
+   at [64, 11, 11, 128] in bf16 and f32 and at connect4's 2,048 leaves
+   [2048, 6, 7, 64] in bf16: each kernel against its plain version (bf16
+   within 8e-3 of max |plain|, f32 1e-5), then the probe's entry point,
+   which holds each kernel against the library conv (< 2e-2) and times 50
+   chained applications of each engine in one CUDA graph;
+10. the stream probe (kernel 10, the counterpart of tools/stream_probe.py)
+   at [64, 512, 8, 128]: the kernel against its plain version for 64 and
+   128 levels (1e-5 relative), then the probe's entry point (the float64
+   reference at rtol 1e-4, the time per level);
+11. the board-game lanes at the JAX bench's compute dtype, bfloat16:
+   connect4 K = 1 (pretrained, 256 lanes x 200 sims, the 64-game gate
+   against the expert), connect4 K = 8 with bf16 search activations (the
+   whole-search check of 4c) and gomoku (64 lanes x 400 sims); each timed
+   as in 4b, profiled for one move, and checked to run its convs on bf16
+   weights with the hidden store in its activation dtype;
+12. prints one {"kernels": [...]} JSON line, then ends with
    {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
@@ -101,6 +117,7 @@ CSRC = "muzero_general_tpu_torch/csrc/"
 # One H100 SXM at its 700 W limit (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense bfloat16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 VALUE_TOL = 1e-5
 QUALITY_GAMES, QUALITY_WINS = 64, 48
@@ -141,10 +158,62 @@ def graph_ms(fn, reps):
     return cuda_ms(graph.replay, 1) / reps
 
 
-def bound_ms(flops, nbytes):
-    t_ops = flops / PEAK_F32_FLOPS
+def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
+    t_ops = flops / peak_flops
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def timed_play(driver, reps):
+    """One warm-up driver.play chunk, then `reps` timed ones. The move loop
+    (play_chunk) is timed inside the same calls, so the split between it and
+    the host's episode cuts sees no drift. Returns (seconds per chunk, ms
+    per move of the move loop, the last chunk's stats, every chunk's
+    MoveRecord, the warm-up's included)."""
+    chunk_times, records = [], []
+    play_chunk = driver.play_chunk
+
+    def timed_play_chunk(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = play_chunk(*args, **kwargs)
+        torch.cuda.synchronize()
+        chunk_times.append(time.perf_counter() - t)
+        records.append(out)
+        return out
+
+    driver.play_chunk = timed_play_chunk
+    try:
+        driver.play(temperature=1.0)  # warm-up
+        chunk_times.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _, stats = driver.play(temperature=1.0)
+        torch.cuda.synchronize()
+        chunk_s = (time.perf_counter() - t0) / reps
+    finally:
+        del driver.play_chunk
+    loop_ms = sum(chunk_times) * 1e3 / (reps * driver.config.selfplay_chunk_moves)
+    return chunk_s, loop_ms, stats, records
+
+
+def network_ms(folded, driver, leaves=1, reps=20, init_reps=5):
+    """The device time of one recurrent inference at the driver's batch
+    times `leaves` and of one initial inference (CUDA graph replay), and of
+    a recurrent call from Python (CUDA events)."""
+    with torch.no_grad():
+        obs = driver.env.observation(driver._carry.env_state)
+        hidden = folded.initial_inference(obs)[3].repeat(leaves, 1, 1, 1)
+        action = torch.zeros((leaves * driver.G,), dtype=torch.long, device=hidden.device)
+
+        def recurrent():
+            return folded.recurrent_inference(hidden, action)
+
+        rec_call = cuda_ms(recurrent, reps)
+        rec_ms = graph_ms(recurrent, reps)
+        init_ms = graph_ms(lambda: folded.initial_inference(obs), init_reps)
+    return rec_ms, init_ms, rec_call
 
 
 def load_pretrained(net, path):
@@ -667,33 +736,11 @@ def connect4_path():
     if driver.use_fused or not driver.spec.use_kernels or not driver.fold_bn:
         fail("connect4: the driver did not route to the staged search's kernels")
     K, reps, S = cfg.selfplay_chunk_moves, 3, cfg.num_simulations
-    # play = the move loop (play_chunk) + the host's episode cuts; the loop
-    # is timed inside the same calls, so the split sees no drift.
-    chunk_times = []
-    play_chunk = driver.play_chunk
-
-    def timed_play_chunk(*args, **kwargs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = play_chunk(*args, **kwargs)
-        torch.cuda.synchronize()
-        chunk_times.append(time.perf_counter() - t)
-        return out
-
-    driver.play_chunk = timed_play_chunk
     mcts_kernels.descend_planar.launches = 0
     mcts_kernels.backprop.launches = 0
-    driver.play(temperature=1.0)  # warm-up
-    chunk_times.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        _, stats = driver.play(temperature=1.0)
-    torch.cuda.synchronize()
-    chunk_s = (time.perf_counter() - t0) / reps
+    chunk_s, loop_ms, stats, _ = timed_play(driver, reps)
     launches = {"descend_planar": mcts_kernels.descend_planar.launches,
                 "backprop": mcts_kernels.backprop.launches}
-    del driver.play_chunk
     moves = (reps + 1) * K
     for name, count in launches.items():
         if count != S * moves:
@@ -703,23 +750,12 @@ def connect4_path():
         f"pretrained 3x64 ResNet: {chunk_s * 1e3:.2f} ms/chunk, "
         f"{stats['env_steps'] / chunk_s:.1f} env-steps/s, launches {launches} = "
         f"{S} x {moves} moves, max tree depth {stats['max_tree_depth']}")
-    loop_ms = sum(chunk_times) * 1e3 / (reps * K)
     move_ms = chunk_s * 1e3 / K
 
     # The device work of a move: S recurrent inferences and one initial one
     # at the driver's batch (device time by graph replay; per call from
     # Python by CUDA events), and S launches of each tree kernel.
-    with torch.no_grad():
-        obs = driver.env.observation(driver._carry.env_state)
-        hidden = folded.initial_inference(obs)[3]
-        action = torch.zeros((driver.G,), dtype=torch.long, device=hidden.device)
-
-        def recurrent():
-            return folded.recurrent_inference(hidden, action)
-
-        rec_call = cuda_ms(recurrent, 20)
-        rec_ms = graph_ms(recurrent, 20)
-        init_ms = graph_ms(lambda: folded.initial_inference(obs), 5)
+    rec_ms, init_ms, rec_call = network_ms(folded, driver)
     dev_net = S * rec_ms + init_ms
     dev_kern = S * (kernels["descend_planar"]["ms"] + kernels["backprop"]["ms"])
     log(f"[connect4] per move: {move_ms:.3f} ms = move loop {loop_ms:.3f} + host episode "
@@ -921,43 +957,24 @@ def connect4_multileaf_path():
     if driver.use_fused or not spec.use_kernels or spec.batch_leaves != 8 or not driver.fold_bn:
         fail("connect4 K=8: the driver did not route to the marking kernels")
     K, reps, S, L = cfg.selfplay_chunk_moves, 3, cfg.num_simulations, spec.batch_leaves
-    chunk_times, records, inferences = [], [], []
-    play_chunk = driver.play_chunk
+    inferences = []
     recurrent_inference = ResMuZero.recurrent_inference
-
-    def timed_play_chunk(*args, **kwargs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = play_chunk(*args, **kwargs)
-        torch.cuda.synchronize()
-        chunk_times.append(time.perf_counter() - t)
-        records.append(out)
-        return out
 
     def counted_recurrent_inference(self, hidden, action):
         inferences.append(hidden.shape[0])
         return recurrent_inference(self, hidden, action)
 
-    driver.play_chunk = timed_play_chunk
     ResMuZero.recurrent_inference = counted_recurrent_inference
     try:
         d, b = mcts_kernels.descend_planar, mcts_kernels.backprop
         d.launches = d.marked_launches = b.launches = b.pre_marked_launches = 0
-        driver.play(temperature=1.0)  # warm-up
-        chunk_times.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            _, stats = driver.play(temperature=1.0)
-        torch.cuda.synchronize()
-        chunk_s = (time.perf_counter() - t0) / reps
+        chunk_s, loop_ms, stats, records = timed_play(driver, reps)
         launches = {"descend_planar_mark": d.marked_launches,
                     "backprop_pre_marked": b.pre_marked_launches,
                     "descend_planar": d.launches - d.marked_launches,
                     "backprop": b.launches - b.pre_marked_launches}
     finally:
         ResMuZero.recurrent_inference = recurrent_inference
-        del driver.play_chunk
     moves = (reps + 1) * K
     for name in ("descend_planar_mark", "backprop_pre_marked"):
         if launches[name] != S * moves:
@@ -980,20 +997,8 @@ def connect4_multileaf_path():
         f"ms/chunk, {stats['env_steps'] / chunk_s:.1f} env-steps/s, launches {launches} "
         f"({S} per move), {len(inferences) // moves} recurrent inferences of "
         f"{L * driver.G} leaves per move, max tree depth {stats['max_tree_depth']}")
-    loop_ms = sum(chunk_times) * 1e3 / (reps * K)
     move_ms = chunk_s * 1e3 / K
-
-    with torch.no_grad():
-        obs = driver.env.observation(driver._carry.env_state)
-        hidden = folded.initial_inference(obs)[3].repeat(L, 1, 1, 1)
-        action = torch.zeros((L * driver.G,), dtype=torch.long, device=hidden.device)
-
-        def recurrent():
-            return folded.recurrent_inference(hidden, action)
-
-        rec_call = cuda_ms(recurrent, 10)
-        rec_ms = graph_ms(recurrent, 10)
-        init_ms = graph_ms(lambda: folded.initial_inference(obs), 5)
+    rec_ms, init_ms, rec_call = network_ms(folded, driver, leaves=L, reps=10)
     dev_net = S // L * rec_ms + init_ms
     dev_kern = S * (kernels["descend_planar_mark"]["ms"] + kernels["backprop_pre_marked"]["ms"])
     log(f"[connect4 K=8] per move: {move_ms:.3f} ms = move loop {loop_ms:.3f} + host episode "
@@ -1339,32 +1344,11 @@ def gomoku_path():
     if driver.use_fused or spec.use_kernels or not spec.use_stream or not driver.fold_bn:
         fail("gomoku: the driver did not route to the stream kernels with the BN folded")
     K, reps, S = cfg.selfplay_chunk_moves, 3, cfg.num_simulations
-    chunk_times, records = [], []
-    play_chunk = driver.play_chunk
-
-    def timed_play_chunk(*args, **kwargs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = play_chunk(*args, **kwargs)
-        torch.cuda.synchronize()
-        chunk_times.append(time.perf_counter() - t)
-        records.append(out)
-        return out
-
-    driver.play_chunk = timed_play_chunk
     mcts_stream.descend_stream.launches = 0
     mcts_stream.update_edges.launches = 0
-    driver.play(temperature=1.0)  # warm-up
-    chunk_times.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        _, stats = driver.play(temperature=1.0)
-    torch.cuda.synchronize()
-    chunk_s = (time.perf_counter() - t0) / reps
+    chunk_s, loop_ms, stats, records = timed_play(driver, reps)
     launches = {"descend_stream": mcts_stream.descend_stream.launches,
                 "update_edges": mcts_stream.update_edges.launches}
-    del driver.play_chunk
     moves = (reps + 1) * K
     for name, count in launches.items():
         if count != S * moves:
@@ -1382,20 +1366,8 @@ def gomoku_path():
         f"{chunk_s * 1e3:.2f} ms/chunk, {stats['env_steps'] / chunk_s:.2f} env-steps/s, "
         f"launches {launches} = {S} x {moves} moves, max tree depth "
         f"{stats['max_tree_depth']}")
-    loop_ms = sum(chunk_times) * 1e3 / (reps * K)
     move_ms = chunk_s * 1e3 / K
-
-    with torch.no_grad():
-        obs = driver.env.observation(driver._carry.env_state)
-        hidden = folded.initial_inference(obs)[3]
-        action = torch.zeros((driver.G,), dtype=torch.long, device=hidden.device)
-
-        def recurrent():
-            return folded.recurrent_inference(hidden, action)
-
-        rec_call = cuda_ms(recurrent, 10)
-        rec_ms = graph_ms(recurrent, 10)
-        init_ms = graph_ms(lambda: folded.initial_inference(obs), 3)
+    rec_ms, init_ms, rec_call = network_ms(folded, driver, reps=10, init_reps=3)
     dev_net = S * rec_ms + init_ms
     dev_kern = S * (kernels["descend_stream"]["ms"] + kernels["update_edges"]["ms"])
     log(f"[gomoku] per move: {move_ms:.3f} ms = move loop {loop_ms:.3f} + host episode "
@@ -1433,6 +1405,295 @@ def gomoku_path():
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Kernels 8 and 9: the conv probe's two convolutions
+# ---------------------------------------------------------------------------
+
+# The conv probe at its default (gomoku's recurrent-inference conv) in bf16
+# and in f32, and connect4's at K = 8 leaves per round (2,048 leaves).
+CONV_CASES = (((64, 11, 11, 128), "bfloat16"), ((64, 11, 11, 128), "float32"),
+              ((2048, 6, 7, 64), "bfloat16"))
+CONV_PLAIN_TOL = {"bfloat16": 8e-3, "float32": 1e-5}  # max |d| / max |plain|
+
+
+def conv_work(B, H, W, C, itemsize):
+    """(FLOPs, bytes) of one conv: 2 x 9C x C operations per output pixel;
+    the padded input, the weights and the bias read once, the output
+    written once."""
+    flops = 2 * B * H * W * 9 * C * C
+    nbytes = itemsize * (B * (H + 2) * (W + 2) * C + 9 * C * C + C + B * H * W * C)
+    return flops, nbytes
+
+
+def conv_probe_phase():
+    """Phase 9, kernels 8 and 9: each kernel against its plain version at
+    every case (bf16: within 8e-3 of max |plain|, one bf16 ulp, as the
+    tensor cores sum in another order than the plain float32 matmul; f32:
+    1e-5); then the probe's entry point once per case, which holds each
+    kernel against the library conv (< 2e-2, the probe's own bound) and
+    times 50 chained applications of each engine in one CUDA graph. Returns
+    the two kernels' entries of the kernels line."""
+    import torch.nn.functional as F
+
+    from muzero_general_tpu_torch.tools import conv_probe
+
+    dev = torch.device("cuda")
+    names = ("conv_9dot", "conv_im2col")
+    rows = {name: [] for name in names}
+    for (B, H, W, C), dt in CONV_CASES:
+        x, w, b = conv_probe.probe_inputs(B, H, W, C, conv_probe.DTYPES[dt], dev)
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        for name, wk in (("conv_9dot", w.reshape(9, C, C)), ("conv_im2col", w.reshape(9 * C, C))):
+            kernel, plain = getattr(conv_probe, name), getattr(conv_probe, name + "_plain")
+            with torch.no_grad():
+                got, want = kernel(xp, wk, b), plain(xp, wk, b)
+                torch.cuda.synchronize()
+                rel = conv_probe.relative_error(got, want)
+                abs_err = float((got.float() - want.float()).abs().max())
+                if not rel <= CONV_PLAIN_TOL[dt]:
+                    fail(f"{name} [{B}, {H}, {W}, {C}] {dt}: kernel and plain version differ by "
+                         f"{rel!r} of max |plain| > {CONV_PLAIN_TOL[dt]}")
+                call = cuda_ms(lambda: kernel(xp, wk, b), 20)
+                plain_ms = cuda_ms(lambda: plain(xp, wk, b), 3)
+            rows[name].append({"shape": [B, H, W, C], "dtype": dt, "max_abs_err": abs_err,
+                               "plain_rel_err": rel, "call_ms": call, "plain_ms": plain_ms})
+            log(f"[conv probe] {name} vs plain at [{B}, {H}, {W}, {C}] {dt}: max |d| {abs_err!r} "
+                f"= {rel:.2e} of max |plain| (<= {CONV_PLAIN_TOL[dt]}); {call:.4f} ms per call "
+                f"(CUDA events, 20 calls), plain {plain_ms:.4f} ms")
+
+    # The probe's entry point, once per case: these kernels' main path.
+    conv_probe.conv_9dot.launches = conv_probe.conv_im2col.launches = 0
+    for i, ((B, H, W, C), dt) in enumerate(CONV_CASES):
+        log(f"[conv probe] python -m muzero_general_tpu_torch.tools.conv_probe --B {B} --H {H} "
+            f"--W {W} --C {C} --dtype {dt}:")
+        res = conv_probe.main(["--B", str(B), "--H", str(H), "--W", str(W), "--C", str(C),
+                               "--dtype", dt])
+        flops, nbytes = conv_work(B, H, W, C, 2 if dt == "bfloat16" else 4)
+        bnd, by = bound_ms(flops, nbytes,
+                           PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_F32_FLOPS)
+        for name in names:
+            rows[name][i].update(ms=res["us_per_conv"][name] / 1e3,
+                                 library_ms=res["us_per_conv"]["library_conv"] / 1e3,
+                                 tflops=res["tflops"][name], library_rel_err=res["errors"][name],
+                                 bound_ms=bnd, bound_by=by)
+        log(f"[conv probe] bound {bnd * 1e3:.3f} us/conv ({by}: {flops / 1e9:.4f} GFLOP, "
+            f"{nbytes / 1e6:.4f} MB); conv_9dot at {100 * bnd / rows['conv_9dot'][i]['ms']:.1f}%, "
+            f"conv_im2col at {100 * bnd / rows['conv_im2col'][i]['ms']:.1f}%, library conv at "
+            f"{100 * bnd / rows['conv_9dot'][i]['library_ms']:.1f}% of it")
+    launches = {name: getattr(conv_probe, name).launches for name in names}
+    if not all(launches.values()):
+        fail(f"conv probe: a kernel was not launched on the probe's path: {launches}")
+    entries = []
+    for name, replaces in (("conv_im2col", "muzero_general_tpu/tools/conv_probe.py:46"),
+                           ("conv_9dot", "muzero_general_tpu/tools/conv_probe.py:31")):
+        first = rows[name][0]  # the probe's default, bf16
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": CSRC + "conv_probe.cu",
+            "replaces": replaces,
+            # The probe's three runs: per case one check, one warm-up and
+            # the 50 applications captured in the CUDA graph (its replays
+            # run them again without the wrapper).
+            "launches": launches[name],
+            "max_abs_err": first["max_abs_err"],
+            "ms": first["ms"],  # per conv, 50 chained in one CUDA graph
+            "call_ms": first["call_ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],  # F.conv2d (cuDNN) + ReLU, chained the same way
+            "cases": rows[name],
+        })
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10: the stream probe's pointer chase
+# ---------------------------------------------------------------------------
+
+
+def stream_probe_phase():
+    """Phase 10, kernel 10, at the probe's [64, 512, 8, 128] (gomoku's packed
+    slab is [64, 402, 8, 128]): the kernel against its plain version for 64
+    and 128 levels (within 1e-5 relative: the same chain, float32 sums in
+    another order); then the probe's entry point, which holds the kernel
+    against the float64 numpy reference (rtol 1e-4) and times it. Returns
+    the kernel's entry of the kernels line."""
+    from muzero_general_tpu_torch.tools import stream_probe
+
+    dev = torch.device("cuda")
+    B, N, S, A, L = 64, 512, 8, 128, 64
+    slab = torch.from_numpy(stream_probe.probe_slab(B, N, S, A)).to(dev)
+    errs = []
+    for lv in (L, 2 * L):
+        levels = torch.tensor([lv], dtype=torch.int32, device=dev)
+        got = stream_probe.pointer_chase(levels, slab)
+        want = stream_probe.pointer_chase_plain(levels, slab)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs()).max())
+        if not rel <= 1e-5:
+            fail(f"pointer_chase at L={lv}: kernel and plain version differ by {rel!r} relative")
+        errs.append(float((got - want).abs().max()))
+    levels = torch.tensor([L], dtype=torch.int32, device=dev)
+    call = cuda_ms(lambda: stream_probe.pointer_chase(levels, slab), 20)
+    plain_ms = cuda_ms(lambda: stream_probe.pointer_chase_plain(levels, slab), 1)
+    log(f"[stream probe] pointer_chase vs plain at [{B}, {N}, {S}, {A}], L = {L} and {2 * L}: "
+        f"max |d| {max(errs)!r} (<= 1e-5 relative); {call:.4f} ms per call at L = {L}, plain "
+        f"{plain_ms:.3f} ms")
+
+    stream_probe.pointer_chase.launches = 0
+    log(f"[stream probe] python -m muzero_general_tpu_torch.tools.stream_probe --B {B} --N {N} "
+        f"--S {S} --A {A} --levels {L}:")
+    res = stream_probe.main(["--B", str(B), "--N", str(N), "--S", str(S), "--A", str(A),
+                             "--levels", str(L)])
+    launches = stream_probe.pointer_chase.launches
+    if not launches:
+        fail("stream probe: the kernel was not launched on the probe's path")
+    # B x L rows of S x A floats read (the data's chain), the level count
+    # read and the accumulators written; one add per float read.
+    bnd, by = bound_ms(B * L * S * A, B * L * S * A * 4 + 4 + B * 4)
+    ms = res[L]["us"] / 1e3
+    log(f"[stream probe] bound {bnd * 1e3:.3f} us ({by}: {B * L * S * A * 4 / 1e6:.2f} MB) at L = "
+        f"{L}: the kernel at {100 * bnd / ms:.1f}% of it; {res[L]['per_level_us']:.3f} us per "
+        f"level, {res[2 * L]['per_level_us']:.3f} at L = {2 * L}")
+    return {
+        "name": "pointer_chase",
+        "route": "cuda",
+        "source": CSRC + "stream_probe.cu",
+        "replaces": "muzero_general_tpu/tools/stream_probe.py:27",
+        "launches": launches,  # the probe's run: one check and 20 timed calls per L
+        "max_abs_err": max(errs),
+        "ms": ms,  # one call at L = 64, CUDA events over 20 calls
+        "call_ms": call,
+        "per_level_us": res[L]["per_level_us"],
+        "per_lane_row_ns": res[L]["per_lane_row_ns"],
+        "ms_at_2L": res[2 * L]["us"] / 1e3,
+        "plain_ms": plain_ms,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call chases pointers
+    }
+
+
+# ---------------------------------------------------------------------------
+# The board-game lanes at the JAX bench's dtype: bfloat16
+# ---------------------------------------------------------------------------
+
+
+def dtype_check(driver, label):
+    """One move with the dtypes at use recorded: every conv's weight at use
+    must be bfloat16, and every hidden state the search's store hands the
+    recurrent inference must be in the driver's activation dtype."""
+    from muzero_general_tpu_torch.models.common import Conv
+    from muzero_general_tpu_torch.models.resnet import ResMuZero
+
+    weights, hiddens = set(), set()
+    recurrent_inference = ResMuZero.recurrent_inference
+
+    def recording_conv_forward(self, x, weight, bias):
+        weights.add(weight.dtype)
+        return torch.nn.Conv2d._conv_forward(self, x, weight, bias)
+
+    def recording_recurrent_inference(self, hidden, action):
+        hiddens.add(hidden.dtype)
+        return recurrent_inference(self, hidden, action)
+
+    Conv._conv_forward = recording_conv_forward
+    ResMuZero.recurrent_inference = recording_recurrent_inference
+    try:
+        driver.play_chunk(torch.ones((driver.G,)), 1)
+    finally:
+        del Conv._conv_forward
+        ResMuZero.recurrent_inference = recurrent_inference
+    if weights != {torch.bfloat16}:
+        fail(f"{label}: conv weights at use were {weights}, not bfloat16")
+    if hiddens != {driver.act_dtype}:
+        fail(f"{label}: the hidden store held {hiddens}, not {driver.act_dtype}")
+    log(f"[{label}] dtypes at use: conv weights {sorted(map(str, weights))}, hidden store "
+        f"{sorted(map(str, hiddens))}")
+
+
+def bf16_lane(label, game, cfg, net, counters, reps=3):
+    """Drive SelfPlayDriver on `game` at the config's bf16 settings: `reps`
+    timed chunks after a warm-up; each (function, attribute) counter of
+    `counters` must count num_simulations launches per move; the network's
+    device time by graph replay; one profiled move; the dtype check.
+    Returns the driver and its folded network."""
+    from muzero_general_tpu_torch.models import activation_dtype, fold_bn
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+
+    folded = fold_bn(net, activation_dtype(cfg))
+    driver = SelfPlayDriver(game.make_env(), net, cfg, seed=0)
+    if driver.use_fused or not driver.fold_bn:
+        fail(f"{label}: the driver did not route to the staged search with the BN folded")
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    chunk_s, loop_ms, stats, _ = timed_play(driver, reps)
+    K, S, L = cfg.selfplay_chunk_moves, cfg.num_simulations, cfg.search_batch_leaves
+    moves = (reps + 1) * K
+    for fn, attr in counters:
+        if getattr(fn, attr) != S * moves:
+            fail(f"{label}: {fn.__name__}.{attr} = {getattr(fn, attr)} for {moves} moves x {S} "
+                 "sims")
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+    move_ms = chunk_s * 1e3 / K
+    rec_ms, init_ms, rec_call = network_ms(folded, driver, leaves=L, reps=10, init_reps=3)
+    dev_net = S // L * rec_ms + init_ms
+    steps_per_s = stats["env_steps"] / chunk_s
+    log(f"[{label}] SelfPlayDriver.play: {driver.G} lanes x {S} sims ({L} leaves per round), "
+        f"{K} moves/chunk, compute {cfg.compute_dtype}, activations {driver.act_dtype}: "
+        f"{chunk_s * 1e3:.2f} ms/chunk, {steps_per_s:.2f} env-steps/s; per move {move_ms:.3f} "
+        f"ms = move loop {loop_ms:.3f} + host episode cuts {move_ms - loop_ms:.3f}; network "
+        f"{dev_net:.3f} ms of device work ({S // L} x {rec_ms:.4f} recurrent at {L * driver.G} "
+        f"leaves + {init_ms:.4f} initial, graph replay; {rec_call:.4f} ms per recurrent call "
+        f"from Python); launches {counts}")
+    profile_move(driver, loop_ms)
+    dtype_check(driver, label)
+    return driver, folded
+
+
+def bf16_lanes():
+    """Phase 11: connect4 at compute_dtype bfloat16, K = 1, with the 64-game
+    quality gate; connect4 at bfloat16 with bfloat16 search activations and
+    K = 8, with the whole-search check; gomoku at bfloat16 (the settings of
+    the JAX bench's lanes, bench.py:163-318)."""
+    from muzero_general_tpu_torch.games import connect4, gomoku
+    from muzero_general_tpu_torch.models import MuZeroNetwork
+    from muzero_general_tpu_torch.ops import mcts_kernels, mcts_stream
+
+    d, b = mcts_kernels.descend_planar, mcts_kernels.backprop
+
+    def connect4_config(leaves, acts):
+        cfg = connect4.MuZeroConfig()
+        cfg.parallel_games, cfg.selfplay_chunk_moves = 256, 8
+        cfg.compute_dtype, cfg.search_bf16_activations = "bfloat16", acts
+        cfg.search_batch_leaves = leaves
+        return cfg
+
+    cfg = connect4_config(1, False)
+    net = load_pretrained(MuZeroNetwork(cfg), C4_CHECKPOINT)
+    _, folded = bf16_lane("connect4 bf16", connect4, cfg, net,
+                          [(d, "launches"), (b, "launches")])
+    quality_gate(cfg, folded, connect4.make_env())
+
+    cfg = connect4_config(8, True)
+    net = load_pretrained(MuZeroNetwork(cfg), C4_CHECKPOINT)
+    d.launches = b.launches = 0
+    driver, folded = bf16_lane("connect4 bf16 K=8", connect4, cfg, net,
+                               [(d, "marked_launches"), (b, "pre_marked_launches")])
+    if d.launches != d.marked_launches or b.launches != b.pre_marked_launches:
+        fail("connect4 bf16 K=8: unmarked tree kernels launched")
+    whole_search_check(driver, folded, "connect4 bf16 K=8")
+
+    cfg = gomoku.MuZeroConfig()
+    cfg.parallel_games, cfg.selfplay_chunk_moves = 64, 2
+    cfg.compute_dtype = "bfloat16"
+    net = MuZeroNetwork(cfg, seed=0)
+    bf16_lane("gomoku bf16", gomoku, cfg, net,
+              [(mcts_stream.descend_stream, "launches"), (mcts_stream.update_edges, "launches")])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1448,7 +1709,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[device] torch: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 2.-8. ----------------------------------------------------------
+    # ---- 2.-11. ---------------------------------------------------------
     build_kernels()
     kernels = [cartpole_path()]
     log(f"[done] cartpole path after {time.perf_counter() - t_start:.1f} s")
@@ -1461,6 +1722,11 @@ def main():
     kernels.append(row_write_phase())
     log(f"[done] kernels 6 and 7 after {time.perf_counter() - t_start:.1f} s")
     kernels += gomoku_path()
+    log(f"[done] gomoku path after {time.perf_counter() - t_start:.1f} s")
+    kernels += conv_probe_phase()
+    kernels.append(stream_probe_phase())
+    log(f"[done] probes after {time.perf_counter() - t_start:.1f} s")
+    bf16_lanes()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -49,8 +49,8 @@ class MuZeroConfig:
         self.network = "fullyconnected"  # "resnet" / "fullyconnected"
         self.support_size = 10
 
-        # Residual network (models/resnet.py, float32; downsample "resnet" and
-        # "CNN" raise NotImplementedError: ROADMAP module item 12)
+        # Residual network (models/resnet.py; downsample "resnet" and "CNN"
+        # raise NotImplementedError: ROADMAP module item 12)
         self.downsample = False
         self.blocks = 1
         self.channels = 2
@@ -112,8 +112,10 @@ class MuZeroConfig:
         # Unused: the port runs on one device (ROADMAP module item 19).
         self.mesh_dp = None
         self.mesh_mp = 1
-        # Used: "float32" only; "bfloat16" raises NotImplementedError in
-        # MuZeroNetwork (ROADMAP module item 12).
+        # Used: the networks' compute dtype, read as the JAX package reads
+        # it: "bfloat16" computes every conv and dense layer in bfloat16
+        # with float32 accumulation, anything else in float32
+        # (models/network.py compute_dtype). Parameters stay float32.
         self.compute_dtype = "float32"
         # Unused until reanalyse is ported (ROADMAP module item 10).
         self.reanalyse_interval = 20
@@ -149,7 +151,10 @@ class MuZeroConfig:
         # Used: self-play folds a ResNet's batch norms into its convs once
         # per play_chunk (models/network.py fold_bn).
         self.fold_bn_inference = True
-        # Read: True raises NotImplementedError (bf16, ROADMAP item 12).
+        # Used: True runs the folded ResNet's conv pipeline, hidden
+        # normalization and the search's hidden store in bfloat16 (the
+        # heads still emit float32), as in the JAX package; only with
+        # fold_bn_inference (models/network.py activation_dtype).
         self.search_bf16_activations = False
         # Gumbel search is not ported yet (ROADMAP module item 16); the
         # driver raises NotImplementedError when it is on.

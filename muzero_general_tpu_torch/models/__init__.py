@@ -2,8 +2,9 @@
 
 from muzero_general_tpu_torch.models.network import (
     MuZeroNetwork,
+    activation_dtype,
     fold_bn,
     params_from_jax,
 )
 
-__all__ = ["MuZeroNetwork", "fold_bn", "params_from_jax"]
+__all__ = ["MuZeroNetwork", "activation_dtype", "fold_bn", "params_from_jax"]

@@ -7,6 +7,12 @@ named like the flax layers (`TorchDense_<i>`, `TorchConv_<i>`,
 `BatchNorm_<i>`), so a JAX parameter tree maps onto the state dict by name
 (models/network.py `params_from_jax`). Convolutions are NCHW, PyTorch's
 layout; the JAX package's are NHWC.
+
+Mixed precision follows the JAX package's TorchDense and TorchConv: a layer
+of compute `dtype` casts its input and its float32 parameters to `dtype` at
+use, its product comes out in `dtype` and is then cast to `out_dtype`, and
+the bias is added in `out_dtype`. Parameters stay float32 in the module, so
+the weight carry and the checkpoint loader see float32 only.
 """
 
 import math
@@ -17,16 +23,41 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _all_float32(x, *dtypes):
+    return x.dtype == torch.float32 and all(d == torch.float32 for d in dtypes)
+
+
+class Dense(nn.Linear):
+    """nn.Linear with the JAX package's TorchDense precision (see the module
+    docstring): `dtype` for the product, `out_dtype` for the output and the
+    bias add. All-float32 runs nn.Linear's own fused product and bias."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32,
+                 out_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+        self.out_dtype = out_dtype
+
+    def forward(self, x):
+        if _all_float32(x, self.compute_dtype, self.out_dtype):
+            return super().forward(x)
+        y = F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+        return y.to(self.out_dtype) + self.bias.to(self.out_dtype)
+
+
 class MLP(nn.Module):
-    """ELU MLP with identity output (reference models.py:630-642 `mlp`)."""
+    """ELU MLP with identity output (reference models.py:630-642 `mlp`);
+    each layer computes in `dtype` and emits float32, as in the JAX
+    package."""
 
     def __init__(self, input_size: int, layer_sizes: Sequence[int],
-                 output_size: int):
+                 output_size: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         sizes = [input_size] + list(layer_sizes) + [output_size]
         self.num_layers = len(sizes) - 1
         for i in range(self.num_layers):
-            self.add_module(f"TorchDense_{i}", nn.Linear(sizes[i], sizes[i + 1]))
+            self.add_module(f"TorchDense_{i}", Dense(sizes[i], sizes[i + 1], dtype))
 
     def dense_layers(self):
         return [getattr(self, f"TorchDense_{i}") for i in range(self.num_layers)]
@@ -38,35 +69,66 @@ class MLP(nn.Module):
         return layers[-1](x)
 
 
-class ConvNoTF32:
-    """Context in which cuDNN runs float32 convolutions in full float32.
+class FullPrecision:
+    """Context in which the network's products keep the JAX package's
+    precision.
 
-    cuDNN's default runs them in TF32 (about three decimal digits), which
-    would move the ResNet away from the float32 reference; the ResNet's
-    forward passes enter this context instead of relying on a global flag.
-    (Float32 matmuls already default to full float32.)
+    cuDNN's default runs float32 convolutions in TF32 (about three decimal
+    digits), which would move the ResNet away from the float32 reference;
+    and cuBLAS may reduce a bfloat16 product's partial sums in bfloat16,
+    where the JAX package accumulates bfloat16 products in float32. The
+    networks' forward passes enter this context, which turns both off,
+    instead of relying on global flags. (Float32 matmuls already default to
+    full float32.)
     """
 
     def __enter__(self):
-        self._prev = torch.backends.cudnn.allow_tf32
+        matmul = torch.backends.cuda.matmul
+        self._prev = (torch.backends.cudnn.allow_tf32,
+                      matmul.allow_bf16_reduced_precision_reduction)
         torch.backends.cudnn.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = False
 
     def __exit__(self, *exc):
-        torch.backends.cudnn.allow_tf32 = self._prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = self._prev
 
 
-def conv(in_channels: int, out_channels: int, kernel_size: int,
-         bias: bool) -> nn.Conv2d:
-    """SAME-padded stride-1 conv, the JAX package's TorchConv (its init,
-    U(+-1/sqrt(fan_in)) for kernel and bias, is nn.Conv2d's default)."""
-    return nn.Conv2d(in_channels, out_channels, kernel_size,
-                     padding=kernel_size // 2, bias=bias)
+class Conv(nn.Conv2d):
+    """SAME-padded stride-1 conv, the JAX package's TorchConv: its init,
+    U(+-1/sqrt(fan_in)) for kernel and bias, is nn.Conv2d's default, and its
+    precision is Dense's (`dtype` for the product, `out_dtype` for the
+    output and the bias add)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 bias: bool, dtype: torch.dtype = torch.float32,
+                 out_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=kernel_size // 2, bias=bias)
+        self.compute_dtype = dtype
+        self.out_dtype = out_dtype
+
+    def forward(self, x):
+        if _all_float32(x, self.compute_dtype, self.out_dtype):
+            return super().forward(x)
+        y = self._conv_forward(x.to(self.compute_dtype),
+                               self.weight.to(self.compute_dtype), None)
+        y = y.to(self.out_dtype)
+        return y if self.bias is None else y + self.bias.to(self.out_dtype)[:, None, None]
 
 
-def conv3x3(in_channels: int, out_channels: int, bias: bool = False) -> nn.Conv2d:
+def conv(in_channels: int, out_channels: int, kernel_size: int, bias: bool,
+         dtype: torch.dtype = torch.float32,
+         out_dtype: torch.dtype = torch.float32) -> Conv:
+    return Conv(in_channels, out_channels, kernel_size, bias, dtype, out_dtype)
+
+
+def conv3x3(in_channels: int, out_channels: int, bias: bool = False,
+            dtype: torch.dtype = torch.float32,
+            out_dtype: torch.dtype = torch.float32) -> Conv:
     """3x3 conv, pad 1, no bias (reference models.py:206-209); the folded
     variant carries the folded batch norm as its bias."""
-    return conv(in_channels, out_channels, 3, bias)
+    return conv(in_channels, out_channels, 3, bias, dtype, out_dtype)
 
 
 @torch.no_grad()
@@ -95,24 +157,30 @@ class ResidualBlock(nn.Module):
     """conv-bn-relu-conv-bn + skip, relu (reference models.py:213-229), NCHW.
 
     fold_bn: the inference-only variant with each batch norm folded into its
-    conv (models/network.py fold_bn). Submodules carry the flax names
-    (TorchConv_i, BatchNorm_i) so a JAX tree maps on by name.
+    conv (models/network.py fold_bn); its conv outputs, biases, ReLUs and
+    skip add run in `act_dtype` (JAX models/common.py:113-148). The convs
+    compute in `dtype`. Submodules carry the flax names (TorchConv_i,
+    BatchNorm_i) so a JAX tree maps on by name.
     """
 
-    def __init__(self, channels: int, fold_bn: bool = False):
+    def __init__(self, channels: int, fold_bn: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 act_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fold_bn = fold_bn
-        self.TorchConv_0 = conv3x3(channels, channels, bias=fold_bn)
+        self.act_dtype = act_dtype
+        out_dtype = act_dtype if fold_bn else torch.float32
+        self.TorchConv_0 = conv3x3(channels, channels, fold_bn, dtype, out_dtype)
         if not fold_bn:
             self.BatchNorm_0 = batch_norm(channels)
-        self.TorchConv_1 = conv3x3(channels, channels, bias=fold_bn)
+        self.TorchConv_1 = conv3x3(channels, channels, fold_bn, dtype, out_dtype)
         if not fold_bn:
             self.BatchNorm_1 = batch_norm(channels)
 
     def forward(self, x):
         if self.fold_bn:
             out = F.relu(self.TorchConv_0(x))
-            return F.relu(self.TorchConv_1(out) + x)
+            return F.relu(self.TorchConv_1(out) + x.to(self.act_dtype))
         out = F.relu(self.BatchNorm_0(self.TorchConv_0(x)))
         out = self.BatchNorm_1(self.TorchConv_1(out))
         return F.relu(out + x)

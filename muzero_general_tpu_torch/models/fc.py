@@ -3,6 +3,12 @@
 Parity: reference models.py:80-195 (MuZeroFullyConnectedNetwork): ELU MLPs,
 per-sample min-max hidden normalization, one-hot action concatenated in
 dynamics. The reward head reads the UNNORMALIZED dynamics output.
+
+`dtype` is the five MLPs' compute dtype (JAX models/fc.py:40-49); each MLP
+emits float32, so the hidden state and the logits are float32 at either
+dtype. The fused search (ops/mcts_fused.py) runs its recurrent net in
+float32 from the float32 parameters, as the JAX package's does; only the
+initial inference outside it computes in `dtype`.
 """
 
 from typing import Sequence
@@ -12,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from muzero_general_tpu_torch.models.common import (
+    FullPrecision,
     MLP,
     log_one_hot_zero_reward,
     normalize_hidden_fc,
@@ -31,6 +38,7 @@ class FCMuZero(nn.Module):
         fc_representation_layers: Sequence[int],
         fc_dynamics_layers: Sequence[int],
         support_size: int,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         c, h, w = observation_shape
@@ -42,19 +50,19 @@ class FCMuZero(nn.Module):
         self.full_support_size = 2 * support_size + 1
 
         self.representation_network = MLP(
-            self.observation_size, fc_representation_layers, encoding_size
+            self.observation_size, fc_representation_layers, encoding_size, dtype
         )
         self.dynamics_state_network = MLP(
-            encoding_size + action_space_size, fc_dynamics_layers, encoding_size
+            encoding_size + action_space_size, fc_dynamics_layers, encoding_size, dtype
         )
         self.dynamics_reward_network = MLP(
-            encoding_size, fc_reward_layers, self.full_support_size
+            encoding_size, fc_reward_layers, self.full_support_size, dtype
         )
         self.prediction_policy_network = MLP(
-            encoding_size, fc_policy_layers, action_space_size
+            encoding_size, fc_policy_layers, action_space_size, dtype
         )
         self.prediction_value_network = MLP(
-            encoding_size, fc_value_layers, self.full_support_size
+            encoding_size, fc_value_layers, self.full_support_size, dtype
         )
 
     def representation(self, observation):
@@ -79,14 +87,16 @@ class FCMuZero(nn.Module):
         )
 
     def initial_inference(self, observation):
-        hidden = self.representation(observation)
-        policy_logits, value = self.prediction(hidden)
+        with FullPrecision():
+            hidden = self.representation(observation)
+            policy_logits, value = self.prediction(hidden)
         reward = log_one_hot_zero_reward(
             observation.shape[0], self.full_support_size, observation.device
         )
         return value, reward, policy_logits, hidden
 
     def recurrent_inference(self, hidden, action):
-        next_hidden, reward = self.dynamics(hidden, action)
-        policy_logits, value = self.prediction(next_hidden)
+        with FullPrecision():
+            next_hidden, reward = self.dynamics(hidden, action)
+            policy_logits, value = self.prediction(next_hidden)
         return value, reward, policy_logits, next_hidden

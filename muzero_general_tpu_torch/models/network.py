@@ -22,20 +22,32 @@ _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
 
 
+def compute_dtype(config) -> torch.dtype:
+    """The layers' compute dtype: bfloat16 if config.compute_dtype is
+    "bfloat16", else float32 (JAX models/network.py:167-171)."""
+    if getattr(config, "compute_dtype", "float32") == "bfloat16":
+        return torch.bfloat16
+    return torch.float32
+
+
+def activation_dtype(config) -> torch.dtype:
+    """The folded ResNet's activation dtype: bfloat16 when
+    config.search_bf16_activations is on (JAX models/network.py:80-90)."""
+    if getattr(config, "search_bf16_activations", False):
+        return torch.bfloat16
+    return torch.float32
+
+
 def MuZeroNetwork(config, device=None,
                   seed: Optional[int] = None) -> Union[FCMuZero, ResMuZero]:
-    """Build the config's network on `device` (None = "cuda").
+    """Build the config's network on `device` (None = "cuda") at the
+    config's compute dtype (parameters stay float32).
 
     Weights get the TorchDense/TorchConv init, drawn from a generator seeded
-    with `seed` (default config.seed). The port computes in float32:
-    compute_dtype "bfloat16" raises (ROADMAP module item 12).
+    with `seed` (default config.seed).
     """
     device = resolve_device(device)
-    if getattr(config, "compute_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r} is not ported yet (ROADMAP "
-            "module item 12); the port computes in float32"
-        )
+    dtype = compute_dtype(config)
     if config.network == "fullyconnected":
         module = FCMuZero(
             observation_shape=tuple(config.observation_shape),
@@ -48,6 +60,7 @@ def MuZeroNetwork(config, device=None,
             fc_representation_layers=tuple(config.fc_representation_layers),
             fc_dynamics_layers=tuple(config.fc_dynamics_layers),
             support_size=config.support_size,
+            dtype=dtype,
         )
     elif config.network == "resnet":
         module = ResMuZero(
@@ -64,6 +77,7 @@ def MuZeroNetwork(config, device=None,
             fc_policy_layers=tuple(config.resnet_fc_policy_layers),
             support_size=config.support_size,
             downsample=config.downsample,
+            dtype=dtype,
         )
     else:
         raise NotImplementedError(
@@ -77,7 +91,7 @@ def MuZeroNetwork(config, device=None,
 
 
 @torch.no_grad()
-def fold_bn(network: ResMuZero) -> ResMuZero:
+def fold_bn(network: ResMuZero, act_dtype: torch.dtype = torch.float32) -> ResMuZero:
     """Fold every batch norm into its preceding conv (inference only).
 
     The counterpart of the JAX package's fold_bn_variables
@@ -85,8 +99,11 @@ def fold_bn(network: ResMuZero) -> ResMuZero:
     BatchNorm_i becomes a biased conv with
       weight' = weight * s,   bias' = beta - mean * s (+ bias * s),
       s = gamma * rsqrt(running_var + eps)   (per output channel).
-    Returns a new fold_bn=True module on the same device; its outputs equal
-    the network's up to float reassociation, with no normalization pass.
+    The fold runs in float32 on the float32 parameters. Returns a new
+    fold_bn=True module on the same device, at the network's compute dtype
+    with activations in `act_dtype` (activation_dtype(config)); at float32
+    activations its outputs equal the network's up to float reassociation,
+    with no normalization pass.
     """
     modules = dict(network.named_modules())
     state = {}
@@ -108,7 +125,7 @@ def fold_bn(network: ResMuZero) -> ResMuZero:
                 bias = bias + module.bias * s
             state[f"{name}.weight"] = module.weight * s[:, None, None, None]
             state[f"{name}.bias"] = bias
-    folded = network.folded_twin()
+    folded = network.folded_twin(act_dtype)
     folded.load_state_dict(state)
     return folded
 

@@ -10,7 +10,15 @@ The JAX package keeps activations NHWC; the port keeps PyTorch's NCHW, so a
 hidden state here is [B, C, H, W]. The heads flatten their reduced maps in
 the JAX package's (h, w, c) order before the first dense layer, so a JAX
 checkpoint's head kernels load unchanged (models/network.py
-params_from_jax). Convolutions run in full float32 (common.ConvNoTF32).
+params_from_jax).
+
+Precision follows the JAX package (models/resnet.py:108-345): every conv and
+dense layer computes in `dtype` (float32 or bfloat16, config.compute_dtype)
+with float32 accumulation (common.FullPrecision); the heads' 1x1 convs and
+MLPs emit float32 logits. The unfolded network's activations and batch
+norms stay float32. The folded variant runs its conv pipeline, its ReLUs,
+skip adds, hidden normalization and hidden states in `act_dtype` (bfloat16
+when config.search_bf16_activations is on).
 
 Only `downsample=False` is ported: "resnet" and "CNN" (the atari-sized
 downsamplers) raise NotImplementedError (ROADMAP module item 12).
@@ -23,8 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from muzero_general_tpu_torch.models.common import (
+    FullPrecision,
     MLP,
-    ConvNoTF32,
     ResidualBlock,
     batch_norm,
     conv,
@@ -43,14 +51,16 @@ class RepresentationResnet(nn.Module):
     """Reference models.py:300-349, downsample=False."""
 
     def __init__(self, in_channels: int, num_blocks: int, num_channels: int,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, dtype=torch.float32, act_dtype=torch.float32):
         super().__init__()
         self.fold_bn = fold_bn
-        self.TorchConv_0 = conv3x3(in_channels, num_channels, bias=fold_bn)
+        self.TorchConv_0 = conv3x3(in_channels, num_channels, fold_bn, dtype,
+                                   act_dtype if fold_bn else torch.float32)
         if not fold_bn:
             self.BatchNorm_0 = batch_norm(num_channels)
         for i in range(num_blocks):
-            self.add_module(f"ResidualBlock_{i}", ResidualBlock(num_channels, fold_bn))
+            self.add_module(f"ResidualBlock_{i}",
+                            ResidualBlock(num_channels, fold_bn, dtype, act_dtype))
         self.num_blocks = num_blocks
 
     def forward(self, x):
@@ -69,17 +79,19 @@ class DynamicsResnet(nn.Module):
     def __init__(self, num_blocks: int, num_channels: int,
                  reduced_channels_reward: int, fc_reward_layers: Sequence[int],
                  full_support_size: int, block_output_size_reward: int,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, dtype=torch.float32, act_dtype=torch.float32):
         super().__init__()
         self.fold_bn = fold_bn
         self.num_blocks = num_blocks
-        self.TorchConv_0 = conv3x3(num_channels + 1, num_channels, bias=fold_bn)
+        self.TorchConv_0 = conv3x3(num_channels + 1, num_channels, fold_bn, dtype,
+                                   act_dtype if fold_bn else torch.float32)
         if not fold_bn:
             self.BatchNorm_0 = batch_norm(num_channels)
         for i in range(num_blocks):
-            self.add_module(f"ResidualBlock_{i}", ResidualBlock(num_channels, fold_bn))
-        self.TorchConv_1 = conv(num_channels, reduced_channels_reward, 1, bias=True)
-        self.MLP_0 = MLP(block_output_size_reward, fc_reward_layers, full_support_size)
+            self.add_module(f"ResidualBlock_{i}",
+                            ResidualBlock(num_channels, fold_bn, dtype, act_dtype))
+        self.TorchConv_1 = conv(num_channels, reduced_channels_reward, 1, True, dtype)
+        self.MLP_0 = MLP(block_output_size_reward, fc_reward_layers, full_support_size, dtype)
 
     def forward(self, x):
         x = self.TorchConv_0(x)
@@ -98,15 +110,18 @@ class PredictionResnet(nn.Module):
     def __init__(self, action_space_size: int, num_blocks: int, num_channels: int,
                  reduced_channels_value: int, reduced_channels_policy: int,
                  fc_value_layers: Sequence[int], fc_policy_layers: Sequence[int],
-                 full_support_size: int, hw: int, fold_bn: bool = False):
+                 full_support_size: int, hw: int, fold_bn: bool = False,
+                 dtype=torch.float32, act_dtype=torch.float32):
         super().__init__()
         self.num_blocks = num_blocks
         for i in range(num_blocks):
-            self.add_module(f"ResidualBlock_{i}", ResidualBlock(num_channels, fold_bn))
-        self.TorchConv_0 = conv(num_channels, reduced_channels_value, 1, bias=True)
-        self.TorchConv_1 = conv(num_channels, reduced_channels_policy, 1, bias=True)
-        self.MLP_0 = MLP(reduced_channels_value * hw, fc_value_layers, full_support_size)
-        self.MLP_1 = MLP(reduced_channels_policy * hw, fc_policy_layers, action_space_size)
+            self.add_module(f"ResidualBlock_{i}",
+                            ResidualBlock(num_channels, fold_bn, dtype, act_dtype))
+        self.TorchConv_0 = conv(num_channels, reduced_channels_value, 1, True, dtype)
+        self.TorchConv_1 = conv(num_channels, reduced_channels_policy, 1, True, dtype)
+        self.MLP_0 = MLP(reduced_channels_value * hw, fc_value_layers, full_support_size, dtype)
+        self.MLP_1 = MLP(reduced_channels_policy * hw, fc_policy_layers, action_space_size,
+                         dtype)
 
     def forward(self, x):
         for i in range(self.num_blocks):
@@ -122,6 +137,8 @@ class ResMuZero(nn.Module):
 
     fold_bn: the inference-only variant whose convs carry their batch norms
     folded in; built from a trained module by models/network.py fold_bn.
+    dtype: the layers' compute dtype; act_dtype: the folded variant's
+    activation dtype (see the module docstring).
     """
 
     def __init__(self, observation_shape: Sequence[int], stacked_observations: int,
@@ -129,7 +146,8 @@ class ResMuZero(nn.Module):
                  reduced_channels_reward: int, reduced_channels_value: int,
                  reduced_channels_policy: int, fc_reward_layers: Sequence[int],
                  fc_value_layers: Sequence[int], fc_policy_layers: Sequence[int],
-                 support_size: int, downsample=False, fold_bn: bool = False):
+                 support_size: int, downsample=False, fold_bn: bool = False,
+                 dtype=torch.float32, act_dtype=torch.float32):
         super().__init__()
         if downsample:
             raise NotImplementedError(
@@ -147,7 +165,7 @@ class ResMuZero(nn.Module):
             fc_reward_layers=tuple(fc_reward_layers),
             fc_value_layers=tuple(fc_value_layers),
             fc_policy_layers=tuple(fc_policy_layers),
-            support_size=support_size,
+            support_size=support_size, dtype=dtype,
         )
         c, h, w = observation_shape
         n = stacked_observations
@@ -155,22 +173,25 @@ class ResMuZero(nn.Module):
         self.support_size = support_size
         self.full_support_size = 2 * support_size + 1
         self.fold_bn = fold_bn
+        self.dtype = dtype
         self.representation_network = RepresentationResnet(
-            c * (n + 1) + n, num_blocks, num_channels, fold_bn
+            c * (n + 1) + n, num_blocks, num_channels, fold_bn, dtype, act_dtype
         )
         self.dynamics_network = DynamicsResnet(
             num_blocks, num_channels, reduced_channels_reward, fc_reward_layers,
-            self.full_support_size, reduced_channels_reward * h * w, fold_bn,
+            self.full_support_size, reduced_channels_reward * h * w, fold_bn, dtype,
+            act_dtype,
         )
         self.prediction_network = PredictionResnet(
             action_space_size, num_blocks, num_channels, reduced_channels_value,
             reduced_channels_policy, fc_value_layers, fc_policy_layers,
-            self.full_support_size, h * w, fold_bn,
+            self.full_support_size, h * w, fold_bn, dtype, act_dtype,
         )
 
-    def folded_twin(self) -> "ResMuZero":
-        """An untrained fold_bn=True module of the same shape and device."""
-        twin = ResMuZero(**self.hparams, fold_bn=True)
+    def folded_twin(self, act_dtype=torch.float32) -> "ResMuZero":
+        """An untrained fold_bn=True module of the same shape, compute dtype
+        and device, with activations in `act_dtype`."""
+        twin = ResMuZero(**self.hparams, fold_bn=True, act_dtype=act_dtype)
         return twin.to(next(self.parameters()).device).eval()
 
     def representation(self, observation):
@@ -180,8 +201,9 @@ class ResMuZero(nn.Module):
     def dynamics(self, hidden, action):
         """hidden [B, C, H, W], action [B] -> (next hidden, reward logits).
 
-        The action is broadcast as a constant plane action / A, appended as
-        the last channel (reference models.py:555-572)."""
+        The action is broadcast as a constant plane action / A in the hidden
+        state's dtype, appended as the last channel (reference
+        models.py:555-572)."""
         b, _, h, w = hidden.shape
         plane = (action.to(hidden.dtype) / self.action_space_size)[
             :, None, None, None
@@ -193,7 +215,7 @@ class ResMuZero(nn.Module):
         return self.prediction_network(hidden)
 
     def initial_inference(self, observation):
-        with ConvNoTF32():
+        with FullPrecision():
             hidden = self.representation(observation)
             policy_logits, value = self.prediction(hidden)
         reward = log_one_hot_zero_reward(
@@ -202,7 +224,7 @@ class ResMuZero(nn.Module):
         return value, reward, policy_logits, hidden
 
     def recurrent_inference(self, hidden, action):
-        with ConvNoTF32():
+        with FullPrecision():
             next_hidden, reward = self.dynamics(hidden, action)
             policy_logits, value = self.prediction(next_hidden)
         return value, reward, policy_logits, next_hidden

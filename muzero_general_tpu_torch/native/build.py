@@ -104,6 +104,31 @@ _KERNELS = {
             "hidden_store_error_string": (ctypes.c_char_p, [ctypes.c_int]),
         },
     },
+    "conv_probe": {
+        # The conv probe's two kernels: held to a tolerance (tensor-core sums
+        # in another order than a PyTorch matmul's), so FMA contraction
+        # stays on.
+        "flags": [],
+        "api": {
+            "conv_probe_9dot": (
+                ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            ),
+            "conv_probe_im2col": (
+                ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            ),
+            "conv_probe_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        },
+    },
+    "stream_probe": {
+        # The stream probe's pointer chase: sums only, held to a tolerance.
+        "flags": [],
+        "api": {
+            "stream_probe_chase": (
+                ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            ),
+            "stream_probe_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        },
+    },
 }
 
 _loaded = {}

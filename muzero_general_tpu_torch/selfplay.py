@@ -14,15 +14,16 @@ them: the planar kernels for trees that fit them (connect4), the stream
 kernels for bigger ones (gomoku). `search_batch_leaves` > 1 runs the staged
 search in multi-leaf rounds; FC networks on the fused search ignore it, as
 the JAX driver's fused route does (JAX selfplay.py:99-113). A ResNet's batch
-norms are folded into its convs once per play_chunk (`fold_bn_inference`).
+norms are folded into its convs once per play_chunk (`fold_bn_inference`),
+the folded twin's activations in bfloat16 when `search_bf16_activations` is
+on; the network computes at `compute_dtype`, as in the JAX driver.
 
 Evaluation is folded in as greedy lanes: lanes [0, greedy_lanes) play at
 temperature 0 inside the same batch and their episodes come back in
 stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
 
 Not ported yet, and refused with NotImplementedError: Gumbel search (ROADMAP
-module item 16) and bf16 search activations (item 12).
-The mesh/dp sharding of lanes (item 19) is not ported either.
+module item 16). The mesh/dp sharding of lanes (item 19) is not ported either.
 """
 
 from typing import NamedTuple, Optional
@@ -32,7 +33,7 @@ import torch
 
 from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.envs.core import where_state
-from muzero_general_tpu_torch.models import fold_bn
+from muzero_general_tpu_torch.models import activation_dtype, fold_bn
 from muzero_general_tpu_torch.models.resnet import ResMuZero
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
 from muzero_general_tpu_torch.ops import mcts_fused
@@ -76,11 +77,6 @@ class SelfPlayDriver:
             raise NotImplementedError(
                 "Gumbel search is not ported yet (ROADMAP module item 16)"
             )
-        if getattr(config, "search_bf16_activations", False):
-            raise NotImplementedError(
-                "bf16 search activations are not ported yet (ROADMAP module "
-                "item 12); the port computes in float32"
-            )
         self.env = env
         self.network = network
         self.config = config
@@ -101,6 +97,7 @@ class SelfPlayDriver:
             bool(getattr(config, "fold_bn_inference", True))
             and isinstance(network, ResMuZero)
         )
+        self.act_dtype = activation_dtype(config)
         self.A = env.num_actions
         self._n = config.stacked_observations
         self._obs_shape = tuple(env.observation_shape)
@@ -205,7 +202,7 @@ class SelfPlayDriver:
         if self.use_fused:
             net = mcts_fused.fused_weights(self.network, self.config.encoding_size)
         elif self.fold_bn:
-            net = fold_bn(self.network)
+            net = fold_bn(self.network, self.act_dtype)
         else:
             net = self.network
         records = []

@@ -2,8 +2,10 @@
 fused search (ops/mcts_fused.py), the staged search's descents (planar, with
 and without the virtual-visit mark, and node-major) and backprop (with and
 without pre-marked visits; ops/mcts_kernels.py), the streaming search's
-descent and edge updates (ops/mcts_stream.py) and the hidden-store row
-write (ops/hidden_store.py).
+descent and edge updates (ops/mcts_stream.py), the hidden-store row write
+(ops/hidden_store.py), and the probes' convolutions and pointer chase
+(tools/conv_probe.py, tools/stream_probe.py, held to tolerances stated
+there); and the bf16 ResNet on the card against itself on the CPU.
 
 Every test here carries the `gpu` marker and skips without a CUDA card. The
 file imports no JAX, so it also runs where JAX is absent; there the suite's
@@ -554,3 +556,121 @@ def test_gomoku_selfplay_runs_through_the_stream_kernels(cuda):
     after = (mcts_stream.descend_stream.launches, mcts_stream.update_edges.launches)
     assert after == (before[0] + 800, before[1] + 800)
     assert stats["env_steps"] == 32 and stats["max_tree_depth"] >= 2
+
+
+# ---- the probes' kernels and the bf16 networks --------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(4, 5, 5, 16), (2, 6, 7, 32), (3, 3, 5, 48),
+                                   (64, 11, 11, 128), (16, 6, 7, 64)])
+def test_conv_probe_kernels_match_plain(cuda, shape, dtype):
+    """Both conv kernels against their plain versions, into a fresh output
+    and into a padded one (interior only): bf16 within 8e-3 of max |plain|
+    (one bf16 ulp: the tensor cores sum in another order), f32 1e-5."""
+    import torch.nn.functional as F
+
+    from muzero_general_tpu_torch.tools import conv_probe
+
+    B, H, W, C = shape
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    x, w, b = conv_probe.probe_inputs(B, H, W, C, dtype, cuda, seed=C)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    for kernel, plain, wk in ((conv_probe.conv_9dot, conv_probe.conv_9dot_plain,
+                               w.reshape(9, C, C)),
+                              (conv_probe.conv_im2col, conv_probe.conv_im2col_plain,
+                               w.reshape(9 * C, C))):
+        before = kernel.launches
+        got = kernel(xp, wk, b)
+        padded = kernel(xp, wk, b, torch.full_like(xp, 5.0))
+        want = plain(xp, wk, b)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        assert got.dtype == dtype and got.shape == (B, H, W, C)
+        assert conv_probe.relative_error(got, want) <= tol
+        assert torch.equal(padded[:, 1:-1, 1:-1], got)
+        border = torch.ones(padded.shape[:3], dtype=torch.bool, device=cuda)
+        border[:, 1:-1, 1:-1] = False
+        assert bool((padded[border] == 5.0).all())
+        lib = conv_probe.library_conv(x, conv_probe.library_weight(w), b[0])
+        assert conv_probe.relative_error(got, lib) < conv_probe.LIBRARY_TOL
+
+
+def test_conv_probe_kernels_reject_what_they_cannot_run(cuda):
+    import torch.nn.functional as F
+
+    from muzero_general_tpu_torch.tools import conv_probe
+
+    x, w, b = conv_probe.probe_inputs(2, 4, 4, 16, torch.bfloat16, cuda)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    with pytest.raises(ValueError, match="dtype"):
+        conv_probe.conv_9dot(xp, w.reshape(9, 16, 16).float(), b)
+    with pytest.raises(ValueError, match="is on"):
+        conv_probe.conv_im2col(xp, w.reshape(144, 16).cpu(), b)
+    # A contiguous xp that starts 16 bytes past an aligned address.
+    shifted = torch.empty(xp.numel() + 8, dtype=xp.dtype, device=cuda)[8:].view(xp.shape)
+    shifted.copy_(xp)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_probe.conv_9dot(shifted, w.reshape(9, 16, 16), b)
+
+
+@pytest.mark.parametrize("levels", [1, 7, 64])
+def test_pointer_chase_kernel_matches_plain(cuda, levels):
+    """The stream probe's chase at gomoku's slab shape: the same rows, float32
+    sums in another order (1e-5 relative)."""
+    from muzero_general_tpu_torch.tools import stream_probe
+
+    slab = torch.from_numpy(stream_probe.probe_slab(64, 402, 8, 128)).to(cuda)
+    lv = torch.tensor([levels], dtype=torch.int32, device=cuda)
+    before = stream_probe.pointer_chase.launches
+    got = stream_probe.pointer_chase(lv, slab)
+    want = stream_probe.pointer_chase_plain(lv, slab)
+    torch.cuda.synchronize()
+    assert stream_probe.pointer_chase.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["unfolded", "folded", "folded_bf16_acts"])
+def test_bf16_resnet_on_the_card_matches_the_cpu(cuda, variant):
+    """The pretrained connect4 ResNet at bf16 on the card against the same
+    net on the CPU. Each conv's bf16 output may round the other way where
+    cuDNN's float32 sum order differs from the CPU's, and the flip travels
+    through up to 13 convs: logits within 3e-2 of the batch's largest, hidden
+    states (normalized to [0, 1]) within 3e-2, a few bf16 ulps."""
+    import pathlib
+
+    from muzero_general_tpu_torch.checkpoint import load_checkpoint
+    from muzero_general_tpu_torch.models import activation_dtype, params_from_jax
+
+    cfg = connect4.MuZeroConfig()
+    cfg.compute_dtype = "bfloat16"
+    cfg.search_bf16_activations = variant == "folded_bf16_acts"
+    path = pathlib.Path(__file__).resolve().parents[1] / "pretrained/connect4/model.checkpoint"
+    state = params_from_jax(load_checkpoint(path)["weights"])
+    nets = []
+    for dev in ("cpu", cuda):
+        net = MuZeroNetwork(cfg, device=dev)
+        net.load_state_dict(state)
+        nets.append(net if variant == "unfolded" else fold_bn(net, activation_dtype(cfg)))
+    env = connect4.make_env(device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    state0 = env.reset(32, gen)
+    for _ in range(5):
+        state0, _, _ = env.step(state0, env.random_legal_action(state0, gen), gen)
+    obs = env.observation(state0)
+    action = torch.arange(32) % 7
+    outs = []
+    with torch.no_grad():
+        for net, dev in zip(nets, ("cpu", cuda)):
+            init = net.initial_inference(obs.to(dev))
+            rec = net.recurrent_inference(init[3], action.to(dev))
+            outs.append([t.cpu() for t in (*init, *rec)])
+    for i, (got, want) in enumerate(zip(outs[1], outs[0])):
+        assert got.dtype == want.dtype
+        if i % 4 == 3:  # hidden states
+            assert got.dtype == (torch.bfloat16 if variant == "folded_bf16_acts"
+                                 else torch.float32)
+            torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
+        elif i != 1:  # logits (the initial reward is the fixed log one-hot)
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=3e-2 * scale)

@@ -378,7 +378,11 @@ def test_build_declares_every_c_interface_as_the_sources_define_it():
 
     assert "mcts_stream" in build._KERNELS
     for name, entry in build._KERNELS.items():
-        assert "--fmad=false" in build.nvcc_flags(name)
+        # The kernels held bit for bit against their plain versions are
+        # built without FMA contraction; the probes' kernels are held to a
+        # tolerance.
+        bit_exact = name in ("mcts_fused", "mcts_kernels", "mcts_stream", "hidden_store")
+        assert ("--fmad=false" in build.nvcc_flags(name)) == bit_exact, name
         source = (build.CSRC_DIR / f"{name}.cu").read_text()
         defined = {
             fn: (ctype(ret), [ctype(p) for p in params.split(",")])

@@ -129,9 +129,11 @@ def test_resnet_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="item 12"):
             MuZeroNetwork(cfg, device="cpu")
     cfg.downsample = False
+    # bfloat16 is ported: the layers compute in it, the parameters stay float32.
     cfg.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MuZeroNetwork(cfg, device="cpu")
+    net = MuZeroNetwork(cfg, device="cpu")
+    assert net.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in net.parameters())
 
 
 def test_resnet_init_is_seeded_torch_conv_init():

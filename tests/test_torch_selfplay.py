@@ -142,9 +142,10 @@ def test_driver_rejects_what_is_not_ported():
     assert bool((rec.child_visits.sum(-1) - 1).abs().max() < 1e-5)
     cfg.use_fused_search = "auto"
     cfg.search_batch_leaves = 1
+    # bfloat16 search activations are ported (tests/test_torch_bf16.py).
     cfg.search_bf16_activations = True
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SelfPlayDriver(env, net, cfg, device="cpu")
+    assert SelfPlayDriver(env, net, cfg, device="cpu").act_dtype == torch.bfloat16
+    cfg.search_bf16_activations = False
     # Trees the planar kernels cannot take go to the stream kernels, as in
     # the JAX package.
     gcfg = _config(MuZeroConfig, G=16, sims=400)
@@ -158,8 +159,7 @@ def test_driver_rejects_what_is_not_ported():
         MuZeroNetwork(tcfg, device="cpu")
     tcfg.downsample = False
     tcfg.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MuZeroNetwork(tcfg, device="cpu")
+    assert MuZeroNetwork(tcfg, device="cpu").dtype == torch.bfloat16
 
 
 def test_resnet_driver_matches_jax_driver_until_first_done():
