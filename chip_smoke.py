@@ -1414,6 +1414,17 @@ def gomoku_path():
 CONV_CASES = (((64, 11, 11, 128), "bfloat16"), ((64, 11, 11, 128), "float32"),
               ((2048, 6, 7, 64), "bfloat16"))
 CONV_PLAIN_TOL = {"bfloat16": 8e-3, "float32": 1e-5}  # max |d| / max |plain|
+CONV_DESIGN = {
+    "conv_9dot": "bf16: wgmma m64nBNk16 (BN 64 or 128) on 1-2 consumer warpgroups, both operands "
+                 "in 128B-swizzled smem; a TMA ring (up to 12 stages, mbarriers, one producer "
+                 "thread) of per-tap pixel boxes and weight slices; box-shaped tiles of the image "
+                 "grid, persistent grid, weights resident where they fit; f32: 3-stage cp.async "
+                 "ring into 4x8 register tiles on the CUDA cores",
+    "conv_im2col": "bf16: wgmma m64nBNk16 from 128B-swizzled smem; the block's patch tile [BM, 9C] "
+                   "gathered once into smem by TMA, weight slices through a TMA ring (mbarriers, "
+                   "one producer thread), persistent grid; f32: resident 32-pixel patch tile, "
+                   "weights through a 3-stage cp.async ring, 4x8 register tiles",
+}
 
 
 def conv_work(B, H, W, C, itemsize):
@@ -1480,6 +1491,11 @@ def conv_probe_phase():
             f"{nbytes / 1e6:.4f} MB); conv_9dot at {100 * bnd / rows['conv_9dot'][i]['ms']:.1f}%, "
             f"conv_im2col at {100 * bnd / rows['conv_im2col'][i]['ms']:.1f}%, library conv at "
             f"{100 * bnd / rows['conv_9dot'][i]['library_ms']:.1f}% of it")
+        for name in names:
+            row = rows[name][i]
+            log(f"[conv probe] {name} [{B}, {H}, {W}, {C}] {dt}: {row['tflops']:.1f} TFLOP/s, "
+                f"{100 * bnd / row['ms']:.1f}% of the bound, {row['ms'] / row['library_ms']:.2f}x "
+                f"the library conv's time")
     launches = {name: getattr(conv_probe, name).launches for name in names}
     if not all(launches.values()):
         fail(f"conv probe: a kernel was not launched on the probe's path: {launches}")
@@ -1492,6 +1508,7 @@ def conv_probe_phase():
             "route": "cuda",
             "source": CSRC + "conv_probe.cu",
             "replaces": replaces,
+            "design": CONV_DESIGN[name],
             # The probe's three runs: per case one check, one warm-up and
             # the 50 applications captured in the CUDA graph (its replays
             # run them again without the wrapper).

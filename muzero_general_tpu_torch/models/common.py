@@ -147,10 +147,32 @@ def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = N
             layer.reset_parameters()
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
+class BatchNorm(nn.BatchNorm2d):
+    """flax nn.BatchNorm(momentum=0.9), eps 1e-5, on NCHW activations.
+
+    Eval mode is nn.BatchNorm2d's (running statistics). Train mode
+    normalises with the batch's biased statistics, as both frameworks do,
+    and updates the running statistics as flax does:
+    ra = 0.9 * ra + 0.1 * batch, with the biased variance. (nn.BatchNorm2d
+    would update running_var with the unbiased one, n / (n - 1) larger.)
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        # No running statistics passed: normalise by the batch's own.
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def batch_norm(channels: int) -> BatchNorm:
     """flax nn.BatchNorm(momentum=0.9), eps 1e-5: torch's momentum is the
     weight of the new batch, 1 - 0.9."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm(channels, eps=1e-5, momentum=0.1)
 
 
 class ResidualBlock(nn.Module):

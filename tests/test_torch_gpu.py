@@ -563,11 +563,17 @@ def test_gomoku_selfplay_runs_through_the_stream_kernels(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("shape", [(4, 5, 5, 16), (2, 6, 7, 32), (3, 3, 5, 48),
-                                   (64, 11, 11, 128), (16, 6, 7, 64)])
+                                   (64, 11, 11, 128), (16, 6, 7, 64), (2048, 6, 7, 64),
+                                   (1, 1, 1, 16), (5, 7, 9, 80), (2, 5, 5, 192), (1, 3, 130, 16)])
 def test_conv_probe_kernels_match_plain(cuda, shape, dtype):
     """Both conv kernels against their plain versions, into a fresh output
     and into a padded one (interior only): bf16 within 8e-3 of max |plain|
-    (one bf16 ulp: the tensor cores sum in another order), f32 1e-5."""
+    (one bf16 ulp: the tensor cores sum in another order), f32 1e-5.
+    (2048, 6, 7, 64) gives the persistent grid more tiles than SMs; (1, 1,
+    1, 16) a single-pixel tile; (5, 7, 9, 80) a last tile that no tile
+    height divides and a channel chunk zero-filled past C; (2, 5, 5, 192)
+    two column tiles and an im2col patch tile too large to keep whole;
+    (1, 3, 130, 16) a row wider than a tile."""
     import torch.nn.functional as F
 
     from muzero_general_tpu_torch.tools import conv_probe
