@@ -60,7 +60,8 @@ In order, it:
 7. the hidden-store row write (the counterpart of
    tools/hidden_store_bench.py, [201, 256, 2688]): kernel vs plain,
    bit-equal, every other row unchanged; the bench's 200-simulation loop;
-   one write beside store[node].copy_(leaf);
+   one write beside store[node].copy_(leaf), in turns, with its share of
+   the bound and its ratio to copy_;
 8. the gomoku path (the shipped 6 x 128 ResNet, seeded random weights, f32;
    the staged search's stream route with the stream descent and edge-update
    kernels):
@@ -69,7 +70,8 @@ In order, it:
       400 simulations, tie jitter 1e-5: all eight descend outputs equal; the
       slab's live rows after an update equal, with every 8th lane cut to a
       depth-1 leaf while the bound stays the deepest lane's, so masked
-      levels (aimed at the dummy row) are exercised;
+      levels (aimed at the dummy row) are exercised; the descent's time per
+      level of its deepest lane;
    b. runs SelfPlayDriver on gomoku at 64 lanes x 400 simulations, chunks of
       2 moves; times 3 chunks after a warm-up, the move loop apart from the
       host's episode cuts; checks the stream route with the BN folded, 400
@@ -88,7 +90,8 @@ In order, it:
 10. the stream probe (kernel 10, the counterpart of tools/stream_probe.py)
    at [64, 512, 8, 128]: the kernel against its plain version for 64 and
    128 levels (1e-5 relative), then the probe's entry point (the float64
-   reference at rtol 1e-4, the time per level);
+   reference at rtol 1e-4, the time per level), beside the stream descent's
+   time per level from 8a;
 11. the board-game lanes at the JAX bench's compute dtype, bfloat16:
    connect4 K = 1 (pretrained, 256 lanes x 200 sims, the 64-game gate
    against the expert), connect4 K = 8 with bf16 search activations (the
@@ -104,6 +107,7 @@ phase fails. It imports nothing of JAX.
 
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -232,6 +236,7 @@ def build_kernels():
     log(f"[build] {len(infos)} kernels built together in {time.perf_counter() - t0:.2f} s")
     for name, info in infos.items():
         log(f"[build] {CSRC}{name}.cu -> {info['path'].name} in {info['seconds']:.2f} s")
+        # ptxas -v: registers, shared memory and spills of every kernel
         for line in info["log"].splitlines():
             if "ptxas" in line or "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
@@ -633,11 +638,13 @@ def whole_search_check(driver, folded, game="connect4"):
     return k, legal
 
 
-def profile_move(driver, move_ms):
+def profile_move(driver, move_ms, means=()):
     """One move under torch.profiler: the device time of its kernels, their
     launches per simulation, the card's busy share of an unprofiled move
-    (`move_ms`, the profiler slows the host) and the largest kernels. Prints
-    "not measured" when the trace holds no device time."""
+    (`move_ms`, the profiler slows the host) and the largest kernels; for
+    each name in `means`, the mean device time per launch of the kernels
+    whose names hold it. Prints "not measured" when the trace holds no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -676,6 +683,12 @@ def profile_move(driver, move_ms):
         f"{100 - share:.1f}%; trace read in {time.perf_counter() - t_parse:.1f} s")
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    for name in means:
+        dev_us = sum(r[0] for r in rows if name in r[1])
+        count = sum(r[2] for r in rows if name in r[1])
+        if count:
+            log(f"[profile] {name}: main-path mean {dev_us / 1e3 / count:.4f} ms per launch "
+                f"({count} launches, {dev_us / 1e3:.3f} ms)")
 
 
 def quality_gate(cfg, folded, env, gate=True):
@@ -1121,7 +1134,8 @@ def row_write_phase():
     vs plain, bit-equal, every other row unchanged; then the bench's loop of
     200 simulations (gather row `parent`, write row i + 1), this phase's
     path, whose launches are counted, beside the same loop with an indexed
-    PyTorch write; then one write's time beside store[node].copy_(leaf)."""
+    PyTorch write; then one write's time beside store[node].copy_(leaf), in
+    turns."""
     from muzero_general_tpu_torch.ops import hidden_store
 
     dev = torch.device("cuda")
@@ -1163,22 +1177,41 @@ def row_write_phase():
 
     loop(indexed)
     loop_indexed = cuda_ms(lambda: loop(indexed), 1) / sims
+    def write():
+        hidden_store.write_node_hidden(store, nodes[7], leaf)
+
+    # One write on the card (CUDA graph of 50): the kernel and
+    # store[node].copy_(leaf) in turns (k, c, c, k), three times; each the
+    # median of its six.
+    times = {"kernel": [], "copy_": []}
     with torch.no_grad():
-        call = cuda_ms(lambda: hidden_store.write_node_hidden(store, nodes[7], leaf), 50)
-        ms = graph_ms(lambda: hidden_store.write_node_hidden(store, nodes[7], leaf), 50)
+        for order in (("kernel", "copy_"), ("copy_", "kernel")) * 3:
+            for name in order:
+                if name == "kernel":
+                    times[name].append(graph_ms(write, 50))
+                else:
+                    times[name].append(graph_ms(lambda: store[7].copy_(leaf), 50))
+        call = cuda_ms(write, 50)
         plain = cuda_ms(lambda: hidden_store.write_node_hidden_plain(store, nodes[7], leaf), 20)
-        library = graph_ms(lambda: store[7].copy_(leaf), 50)
+    ms, library = (statistics.median(times[k]) for k in ("kernel", "copy_"))
     bnd, by = bound_ms(0, 2 * B * F * 4)
     log(f"[hidden store] the bench's loop: {loop_kernel:.4f} ms per simulation with the "
         f"kernel, {loop_indexed:.4f} with store[i + 1] = h (CUDA events over {sims}); one "
-        f"write {ms:.4f} ms on the card (CUDA graph of 50), {call:.4f} ms per call, plain "
-        f"{plain:.4f} ms, store[node].copy_(leaf) {library:.4f} ms; bound {bnd:.6f} ms ({by}: "
+        f"write {ms:.4f} ms on the card (CUDA graph of 50, median of 6 in turns: "
+        f"{times['kernel']}), {call:.4f} ms per call, plain {plain:.4f} ms, "
+        f"store[node].copy_(leaf) {library:.4f} ms ({times['copy_']}); bound {bnd:.6f} ms ({by}: "
         f"{2 * B * F * 4 / 1e6:.3f} MB)")
+    log(f"[hidden store] write_node_hidden at {100 * bnd / ms:.1f}% of the bound, "
+        f"{ms / library:.3f}x copy_'s time")
     return {
         "name": "write_node_hidden",
         "route": "cuda",
         "source": CSRC + "hidden_store.cu",
         "replaces": "muzero_general_tpu/ops/hidden_store.py:30",
+        "design": "one wave of 256-thread blocks, two per SM, each an even contiguous share "
+                  "of the row; up to 4 words in flight per thread, the leaf loads issued "
+                  "before the read of node (one memory latency before the stores); word "
+                  "16/4/2/1 bytes by alignment",
         "launches": launches,  # the bench loop, this phase's path
         "max_abs_err": err,
         "ms": ms,
@@ -1296,7 +1329,7 @@ def stream_snapshot_checks(cfg, folded, env):
 
     with torch.no_grad():
         d_call = cuda_ms(descend, 50)
-        d_ms = graph_ms(descend, 50)
+        d_ms = statistics.median(graph_ms(descend, 50) for _ in range(5))
         mcts_stream.descend_stream_plain(*dargs, **dkw)
         d_plain = cuda_ms(lambda: mcts_stream.descend_stream_plain(*dargs, **dkw), 1)
         u_call = cuda_ms(update, 50)
@@ -1309,12 +1342,20 @@ def stream_snapshot_checks(cfg, folded, env):
                                             d_by),
                                            ("update_edges", u_ms, u_call, u_plain, u_bound,
                                             u_by)):
-        log(f"[gomoku] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches), "
+        log(f"[gomoku] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches; "
+            f"descend_stream the median of 5 graphs), "
             f"{call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
             f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    # The chain's cost per level: the deepest lane sets a launch's length.
+    deepest = int(leaf_depth.max())
+    per_level_us = 1e3 * d_ms / deepest
+    log(f"[gomoku] descend_stream per level of its deepest lane (depth {deepest}): "
+        f"{per_level_us:.3f} us ({d_ms:.4f} ms); the bare row fetch's per level (kernel 10) "
+        f"follows in phase 10")
     return {
         "descend_stream": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain, bound_ms=d_bound,
-                               bound_by=d_by, max_abs_err=d_err),
+                               bound_by=d_by, max_abs_err=d_err, per_level_us=per_level_us,
+                               deepest=deepest),
         "update_edges": dict(ms=u_ms, call_ms=u_call, plain_ms=u_plain, bound_ms=u_bound,
                              bound_by=u_by, max_abs_err=u_err),
     }
@@ -1378,7 +1419,7 @@ def gomoku_path():
         f"{kernels['update_edges']['ms']:.4f}), at the snapshot); the other "
         f"{loop_ms - dev_net - dev_kern:.3f} ms is host time the card waits on and small ops")
     log(f"[gomoku] main path done after {time.perf_counter() - t_path:.1f} s")
-    profile_move(driver, loop_ms)
+    profile_move(driver, loop_ms, means=("descend_stream_kernel",))
     log(f"[gomoku] profile done after {time.perf_counter() - t_path:.1f} s")
 
     # ---- 8c. ---------------------------------------------------------------
@@ -1387,21 +1428,33 @@ def gomoku_path():
     entries = []
     for name, replaces in (("descend_stream", "muzero_general_tpu/ops/mcts_stream.py:45"),
                            ("update_edges", "muzero_general_tpu/ops/mcts_stream.py:284")):
-        entries.append({
+        k = kernels[name]
+        entry = {
             "name": name,
             "route": "cuda",
             "source": CSRC + "mcts_stream.cu",
             "replaces": replaces,
             "launches": launches[name],
             "visits_exact": True,  # the checks failed the run otherwise
-            "max_abs_err": kernels[name]["max_abs_err"],
-            "ms": kernels[name]["ms"],
-            "call_ms": kernels[name]["call_ms"],
-            "plain_ms": kernels[name]["plain_ms"],
-            "bound_ms": kernels[name]["bound_ms"],
-            "bound_by": kernels[name]["bound_by"],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "call_ms": k["call_ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
             "library_ms": None,  # no single PyTorch call descends a tree or runs this update
-        })
+        }
+        if name == "descend_stream":
+            entry["design"] = (
+                "one warp per lane, one lane a block; per level all five planes as float4 "
+                "(4 columns a thread) in one round trip; redux.sync visit sum (shuffles for "
+                "fractional counts), redux.sync "
+                "max + ballot argmax, the winner's stats by shuffle; divisions only in "
+                "column slots with a visited edge, exact via a smem table of 1/b in double; "
+                "pUCT numerator tabulated in smem once per launch and predicted from the "
+                "edge taken; root legal mask in registers, Philox words while the loads fly")
+            entry["per_level_us"] = k["per_level_us"]  # ms / the deepest lane's depth
+        entries.append(entry)
     return entries
 
 
@@ -1530,7 +1583,7 @@ def conv_probe_phase():
 # ---------------------------------------------------------------------------
 
 
-def stream_probe_phase():
+def stream_probe_phase(descend_per_level_us):
     """Phase 10, kernel 10, at the probe's [64, 512, 8, 128] (gomoku's packed
     slab is [64, 402, 8, 128]): the kernel against its plain version for 64
     and 128 levels (within 1e-5 relative: the same chain, float32 sums in
@@ -1574,6 +1627,9 @@ def stream_probe_phase():
     log(f"[stream probe] bound {bnd * 1e3:.3f} us ({by}: {B * L * S * A * 4 / 1e6:.2f} MB) at L = "
         f"{L}: the kernel at {100 * bnd / ms:.1f}% of it; {res[L]['per_level_us']:.3f} us per "
         f"level, {res[2 * L]['per_level_us']:.3f} at L = {2 * L}")
+    log(f"[stream probe] per level: descend_stream {descend_per_level_us:.3f} us (phase 8a, "
+        f"its deepest lane) against the bare row fetch's {res[L]['per_level_us']:.3f} us: "
+        f"{descend_per_level_us / res[L]['per_level_us']:.2f}x")
     return {
         "name": "pointer_chase",
         "route": "cuda",
@@ -1631,7 +1687,7 @@ def dtype_check(driver, label):
         f"{sorted(map(str, hiddens))}")
 
 
-def bf16_lane(label, game, cfg, net, counters, reps=3):
+def bf16_lane(label, game, cfg, net, counters, reps=3, means=()):
     """Drive SelfPlayDriver on `game` at the config's bf16 settings: `reps`
     timed chunks after a warm-up; each (function, attribute) counter of
     `counters` must count num_simulations launches per move; the network's
@@ -1665,7 +1721,7 @@ def bf16_lane(label, game, cfg, net, counters, reps=3):
         f"{dev_net:.3f} ms of device work ({S // L} x {rec_ms:.4f} recurrent at {L * driver.G} "
         f"leaves + {init_ms:.4f} initial, graph replay; {rec_call:.4f} ms per recurrent call "
         f"from Python); launches {counts}")
-    profile_move(driver, loop_ms)
+    profile_move(driver, loop_ms, means)
     dtype_check(driver, label)
     return driver, folded
 
@@ -1708,7 +1764,8 @@ def bf16_lanes():
     cfg.compute_dtype = "bfloat16"
     net = MuZeroNetwork(cfg, seed=0)
     bf16_lane("gomoku bf16", gomoku, cfg, net,
-              [(mcts_stream.descend_stream, "launches"), (mcts_stream.update_edges, "launches")])
+              [(mcts_stream.descend_stream, "launches"), (mcts_stream.update_edges, "launches")],
+              means=("descend_stream_kernel",))
 
 
 def main():
@@ -1741,7 +1798,8 @@ def main():
     kernels += gomoku_path()
     log(f"[done] gomoku path after {time.perf_counter() - t_start:.1f} s")
     kernels += conv_probe_phase()
-    kernels.append(stream_probe_phase())
+    descend = next(k for k in kernels if k["name"] == "descend_stream")
+    kernels.append(stream_probe_phase(descend["per_level_us"]))
     log(f"[done] probes after {time.perf_counter() - t_start:.1f} s")
     bf16_lanes()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -193,7 +193,10 @@ def descend_stream(seed, sim, depth_bound, edges, root_legal, min_value, max_val
     """The stream descent: the CUDA kernel for CUDA tensors,
     descend_stream_plain for CPU tensors; same arguments and results. On
     CUDA, root_legal must be int32 and depth_bound an int32 0-d tensor on the
-    card (read there, so the simulation loop never waits on the host)."""
+    card (read there, so the simulation loop never waits on the host), and
+    the slab's rows 16-byte aligned (edges at a 16-byte address, A_pad a
+    multiple of 4; pack_tree's slabs are), since the kernel reads them in
+    float4s."""
     kwargs = dict(num_players=num_players, pb_c_base=pb_c_base, pb_c_init=pb_c_init,
                   discount=discount, A=A, max_depth=max_depth, tie_jitter=tie_jitter)
     device = edges.device
@@ -213,6 +216,9 @@ def descend_stream(seed, sim, depth_bound, edges, root_legal, min_value, max_val
     _check("max_value", max_value, f32, (B,), device)
     if num_players not in (1, 2):
         raise ValueError(f"num_players must be 1 or 2, got {num_players}")
+    if edges.data_ptr() % 16 or A_pad % 4:
+        raise ValueError("edges' rows must be 16-byte aligned (a 16-byte address and A_pad "
+                         f"a multiple of 4), got address {edges.data_ptr():#x}, A_pad {A_pad}")
 
     from muzero_general_tpu_torch.native import build
 

@@ -387,6 +387,35 @@ def test_row_write_kernel_matches_plain(cuda, dtype, rest):
         hidden_store.write_node_hidden(store, node_t, leaf[:, :1])
 
 
+@pytest.mark.parametrize("N, B, rest, dtype", [
+    (201, 256, (2688,), torch.float32),  # connect4's store: many blocks, several words a thread
+    (9, 3, (5, 7, 9), torch.float32),  # 3,780 bytes a row: the 4-byte words
+    (9, 3, (5, 7, 12), torch.float32),  # 5,040 bytes: 16-byte words, a part of one block's share
+    (9, 1, (5,), torch.float32),  # 20 bytes: one 16-byte word and a 4-byte rest
+    (9, 4, (6, 7), torch.bfloat16),  # a bf16 store given an f32 leaf
+], ids=["connect4", "rest-5-7-9", "rest-5-7-12", "20-bytes", "bf16-store"])
+def test_row_write_kernel_splits_rows_as_plain(cuda, N, B, rest, dtype):
+    """The row write's grid and word split at the shapes they change with:
+    the target row equals the leaf (cast to the store's dtype), every other
+    row is unchanged; nodes N and -1 write nothing."""
+    from muzero_general_tpu_torch.ops import hidden_store
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    store = torch.randn((N, B) + rest, generator=gen, device=cuda).to(dtype)
+    leaf = torch.randn((B,) + rest, generator=gen, device=cuda)
+    for node in (0, N - 1, N, -1):
+        node_t = torch.tensor(node, dtype=torch.int32, device=cuda)
+        got = hidden_store.write_node_hidden(store.clone(), node_t, leaf)
+        want = hidden_store.write_node_hidden_plain(store.clone(), node_t, leaf)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        others = torch.arange(N, device=cuda) != node
+        assert torch.equal(got[others], store[others])
+        if 0 <= node < N:
+            assert torch.equal(got[node], leaf.to(dtype))
+        del got, want
+
+
 def test_connect4_multileaf_selfplay_runs_through_the_marking_kernels(cuda):
     cfg = connect4.MuZeroConfig()
     cfg.blocks, cfg.channels = 1, 16
@@ -500,6 +529,199 @@ def test_stream_descend_kernel_breaks_exact_ties_as_plain(cuda, tie_jitter):
         assert torch.equal(g, w)
     if tie_jitter == 0.0:
         assert torch.equal(got[1].long(), torch.argmax(legal, dim=1))
+
+
+TABLE, TABLE_SUPPORT = 97, 5
+
+
+def _table_slab(dev, A, num_players=2, B=64, sims=60, seed=0):
+    """A packed slab of width A after `sims` of 2 * sims simulations on the
+    stream route (its plain versions), from a table network: the policy,
+    value and reward logits of a hidden id, the next id a function of the
+    id and the action. Returns the slab, tree, spec, int32 legal mask and
+    depth bound."""
+    gen = torch.Generator().manual_seed(seed)
+    full = 2 * TABLE_SUPPORT + 1
+    tv, tr, tp = (torch.randn((TABLE, w), generator=gen).to(dev) for w in (full, full, A))
+
+    def initial_fn(obs):
+        ids = obs[:, 0].long()
+        reward = torch.full_like(tr[ids], -1e9)
+        reward[:, TABLE_SUPPORT] = 0.0
+        return tv[ids], reward, tp[ids], obs
+
+    def recurrent_fn(h, a):
+        ids = (h[:, 0].long() * A + a.long() + 1) % TABLE
+        return tv[ids], tr[ids], tp[ids], ids[:, None].to(torch.float32)
+
+    obs = torch.randint(0, TABLE, (B, 1), generator=gen).to(torch.float32).to(dev)
+    legal = torch.rand((B, A), generator=gen) < 0.75
+    legal[torch.arange(B), torch.randint(0, A, (B,), generator=gen)] = True
+    to_play = torch.randint(0, 2, (B,), generator=gen).to(torch.int32)
+    spec = mcts_ops.SearchSpec(
+        num_simulations=2 * sims, num_players=num_players, pb_c_base=19652.0, pb_c_init=1.25,
+        discount=0.97 if num_players == 1 else 1.0, dirichlet_alpha=0.3,
+        exploration_fraction=0.25, support_size=TABLE_SUPPORT, max_depth=2 * sims,
+        use_stream=True)
+    legal, to_play = legal.to(dev), to_play.to(dev)
+    with torch.no_grad():
+        out = mcts_ops.run_mcts(initial_fn, recurrent_fn, obs, legal, to_play,
+                                torch.Generator(device=dev).manual_seed(seed), spec, seed=seed,
+                                num_steps=sims, plain_kernels=True)
+    bound = (out.max_tree_depth.max() + 1).to(torch.int32)
+    edges = mcts_stream.pack_tree(out.tree, A)
+    return edges, out.tree, spec, legal.to(torch.int32), bound
+
+
+def _assert_descents_equal(args, kw):
+    got = mcts_stream.descend_stream(*args, **kw)
+    want = mcts_stream.descend_stream_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("parent", "action", "leaf_depth", "path_n", "path_a", "path_r",
+                           "path_v", "path_s"), _flat(got), _flat(want)):
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+@pytest.mark.parametrize("A", [7, 121, 130, 361, 500, 600])
+def test_stream_descend_kernel_matches_plain_at_row_widths(cuda, A, tie_jitter):
+    """Real slabs one to five 128-column chunks wide (A_pad 128 to 640;
+    above 512 columns the kernel reads a row in two passes): all eight
+    outputs equal; then with the root edge of two lanes unexpanded (leaf
+    depth 1) beside deep lanes; then with a bound of 2, which cuts lanes."""
+    edges, tree, spec, legal, bound = _table_slab(cuda, A, num_players=1 + A % 2, seed=A)
+    args, kw = _stream_args(edges, tree, spec, legal, bound, 60, (5 << 32) + A, tie_jitter)
+    got = _assert_descents_equal(args, kw)
+    assert int(got[2].min()) >= 1 and int(got[2].max()) >= 3
+    shallow = edges.clone()
+    shallow[[0, 5], 0, mcts_stream.P_CHILD] = -1.0
+    got = _assert_descents_equal((*args[:3], shallow, *args[4:]), kw)
+    assert got[2][[0, 5]].tolist() == [1, 1] and int(got[2].max()) >= 3
+    cut = torch.tensor(2, dtype=torch.int32, device=cuda)
+    got = _assert_descents_equal((*args[:2], cut, *args[3:]), kw)
+    assert bool((got[2] == -1).any())
+
+
+@pytest.mark.parametrize("A", [121, 130])
+def test_stream_descend_kernel_matches_plain_on_extra_padding(cuda, A):
+    """A slab padded 128 columns past pack_tree's width (A_pad not 128 x the
+    chunks A needs, which the kernel reads with strides given at run time):
+    all eight outputs equal, as on the packed slab."""
+    edges, tree, spec, legal, bound = _table_slab(cuda, A, seed=A + 1)
+    pad = torch.zeros(edges.shape[:3] + (128,), device=cuda)
+    pad[:, :, mcts_stream.P_CHILD] = -1.0
+    wide = torch.cat([edges, pad], dim=3).contiguous()
+    for tie_jitter in (0.0, 1e-5):
+        args, kw = _stream_args(wide, tree, spec, legal, bound, 60, 77, tie_jitter)
+        got = _assert_descents_equal(args, kw)
+        narrow = mcts_stream.descend_stream(*args[:3], edges, *args[4:], **kw)
+        for g, w in zip(_flat(got), _flat(narrow)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("A", [121, 361])
+@pytest.mark.parametrize("fractional", [False, True], ids=["whole-visits", "fractional-visits"])
+def test_stream_descend_kernel_matches_plain_on_random_rows(cuda, A, fractional):
+    """Random rows, not a search's: visit counts 0-7 (a row's sum stays
+    below N, the plain version's numerator table), value sums from
+    1e-38 to 1e30 in magnitude (below 2^-100 the kernel's quotients take
+    the IEEE division), random priors, rewards and child links (cycles
+    included; the bound cuts them); with fractional visits in a few rows
+    the quotients take the IEEE division too. All eight outputs equal."""
+    B, N = 64, 300
+    gen = torch.Generator(device=cuda).manual_seed(A + fractional)
+    A_pad = -(-A // 128) * 128
+    edges = torch.zeros((B, N + 1, mcts_stream.S_PLANES, A_pad), device=cuda)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=cuda)
+
+    visit = torch.where(rand(B, N, A) < 0.1, torch.floor(rand(B, N, A) * 8), 0.0)
+    if fractional:
+        visit[:, ::17] += 0.5 * (visit[:, ::17] > 0)
+    scale = torch.pow(10.0, rand(B, N, A) * 68 - 38)
+    edges[:, :N, mcts_stream.P_VISIT, :A] = visit
+    edges[:, :N, mcts_stream.P_VSUM, :A] = (rand(B, N, A) * 2 - 1) * scale * (visit > 0)
+    edges[:, :N, mcts_stream.P_REWARD, :A] = rand(B, N, A) * 2 - 1
+    edges[:, :N, mcts_stream.P_PRIOR, :A] = rand(B, N, A) / A
+    child = torch.floor(rand(B, N, A) * (N - 1)) + 1
+    edges[:, :N, mcts_stream.P_CHILD] = -1.0
+    edges[:, :N, mcts_stream.P_CHILD, :A] = torch.where(visit > 0, child, -1.0)
+    legal = (rand(B, A) < 0.8).to(torch.int32)
+    legal[:, 0] = 1
+    lo = -rand(B)
+    args = (3, 9, torch.tensor(40, dtype=torch.int32, device=cuda), edges, legal, lo, lo + 2)
+    for num_players, jitter in ((1, 0.0), (2, 1e-5)):
+        kw = dict(num_players=num_players, pb_c_base=19652.0, pb_c_init=1.25, discount=0.97,
+                  A=A, max_depth=N - 1, tie_jitter=jitter)
+        got = _assert_descents_equal(args, kw)
+        assert bool((got[3][2] >= 0).any())  # some lane went two levels down
+
+
+@pytest.mark.parametrize("A", [121, 130])
+def test_stream_descend_kernel_truncates_the_visit_sum_once(cuda, A):
+    """A root whose visits, 2.5 and 3.5, lie with different threads: the
+    plain version truncates their float sum, 6, and so does the kernel;
+    truncating each partial first would give 5. Column 8, unvisited, wins
+    with the numerator of 6 and loses to column 0 (value 1.46) with that of
+    5, so a wrong count changes the action."""
+    B, N = 4, 9  # the plain version's numerator table holds counts 0 to N + 1
+    edges = torch.zeros((B, N + 1, mcts_stream.S_PLANES, -(-A // 128) * 128), device=cuda)
+    edges[:, :N, mcts_stream.P_CHILD] = -1.0
+    edges[:, 0, mcts_stream.P_VISIT, 0] = 2.5
+    edges[:, 0, mcts_stream.P_VISIT, 4] = 3.5
+    edges[:, 0, mcts_stream.P_REWARD, 0] = 1.46
+    edges[:, 0, mcts_stream.P_PRIOR, 8] = 0.5
+    legal = torch.ones((B, A), dtype=torch.int32, device=cuda)
+    lo = torch.zeros((B,), device=cuda)
+    args = (1, 2, torch.tensor(3, dtype=torch.int32, device=cuda), edges, legal, lo, lo + 1)
+    kw = dict(num_players=1, pb_c_base=19652.0, pb_c_init=1.25, discount=1.0, A=A,
+              max_depth=N - 1, tie_jitter=0.0)
+    got = _assert_descents_equal(args, kw)
+    assert got[1].tolist() == [8] * B
+    edges[:, 0, mcts_stream.P_VISIT, 4] = 2.5  # visits 5: column 0 wins
+    got = _assert_descents_equal(args, kw)
+    assert got[1].tolist() == [0] * B
+
+
+def test_stream_descend_rejects_an_unaligned_slab(cuda):
+    """The kernel reads rows in float4s: a slab view at an address not a
+    multiple of 16 bytes is refused with a ValueError, not launched."""
+    B, N1, A = 2, 3, 7
+    base = torch.zeros(B * N1 * mcts_stream.S_PLANES * 128 + 1, device=cuda)
+    edges = base[1:].view(B, N1, mcts_stream.S_PLANES, 128)
+    legal = torch.ones((B, A), dtype=torch.int32, device=cuda)
+    lo = torch.zeros((B,), device=cuda)
+    kw = dict(num_players=1, pb_c_base=19652.0, pb_c_init=1.25, discount=1.0, A=A,
+              max_depth=N1 - 2, tie_jitter=0.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mcts_stream.descend_stream(1, 2, torch.tensor(1, dtype=torch.int32, device=cuda),
+                                   edges, legal, lo, lo + 1, **kw)
+
+
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_stream_descend_kernel_breaks_ties_on_a_two_chunk_row(cuda, tie_jitter):
+    """All-tied fresh roots at A = 130 (A_pad 256): the tie spans both
+    128-column chunks; without jitter the first legal index wins, with it
+    the Philox stream decides, as in the plain version."""
+    B, N, A = 64, 9, 130
+    edges = torch.zeros((B, N + 1, mcts_stream.S_PLANES, 256), device=cuda)
+    edges[:, :N, mcts_stream.P_CHILD] = -1.0
+    edges[:, :N, mcts_stream.P_PRIOR, :A] = 1.0 / A
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    legal = (torch.rand((B, A), generator=gen, device=cuda) < 0.3).to(torch.int32)
+    legal[:, 129] = 1
+    legal[:3] = 0
+    legal[:3, 128:] = 1  # lanes whose legal actions all lie in the second chunk
+    inf = torch.full((B,), float("inf"), device=cuda)
+    args = (11, 4, torch.tensor(3, dtype=torch.int32, device=cuda), edges, legal, inf, -inf)
+    kw = dict(num_players=2, pb_c_base=19652.0, pb_c_init=1.25, discount=1.0, A=A,
+              max_depth=N - 1, tie_jitter=tie_jitter)
+    got = _assert_descents_equal(args, kw)
+    if tie_jitter == 0.0:
+        assert torch.equal(got[1].long(), torch.argmax(legal, dim=1))
+        assert got[1][:3].tolist() == [128, 128, 128]
 
 
 @pytest.mark.parametrize("num_players", [1, 2])

@@ -51,7 +51,7 @@ def _specs(num_players, sims=SIMS):
             torch_mcts.SearchSpec(**common, use_stream=True))
 
 
-def _run_jax(num_players, noise, seed, sims=SIMS):
+def _run_jax(num_players, noise, seed, sims=SIMS, A=A):
     tables = _tables(A, seed)
     obs, legal, to_play = _inputs(B, A, seed + 1)
     jspec, _ = _specs(num_players, sims)
@@ -105,17 +105,17 @@ def test_stream_route_agrees_with_the_plain_op_route():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_slab(num_players):
-    """A JAX stream-route tree after SIMS simulations and its packed slab,
-    numpy (one per player count, shared by the tests: copy before
-    mutating)."""
-    out, _ = _run_jax(num_players, True, seed=num_players)
+def _jax_slab(num_players, A=A):
+    """A JAX stream-route tree of width A after SIMS simulations and its
+    packed slab, numpy (one per player count and width, shared by the tests:
+    copy before mutating)."""
+    out, _ = _run_jax(num_players, True, seed=num_players, A=A)
     edges = np.array(jax_stream.pack_tree(out.tree, A))
     tree = {k: np.array(v) for k, v in out.tree._asdict().items()}
     return tree, edges, int(np.asarray(out.max_tree_depth).max())
 
 
-def _descend_both(tree, edges, depth_bound, spec, tie_jitter=0.0):
+def _descend_both(tree, edges, depth_bound, spec, tie_jitter=0.0, A=A):
     kw = dict(num_players=spec.num_players, pb_c_base=spec.pb_c_base,
               pb_c_init=spec.pb_c_init, discount=spec.discount, A=A, max_depth=SIMS)
     want = jax_stream.descend_stream(
@@ -180,11 +180,11 @@ def test_descend_jitter_is_the_philox_stream():
     assert torch.equal(out[3][1], torch.full((B,), -1, dtype=torch.int32))
 
 
-def _live_paths(tree, edges, max_depth, spec, seed):
+def _live_paths(tree, edges, max_depth, spec, seed, A=A):
     """This slab's next descent, as backprop_stream hands it to the update:
     masked levels aimed at the dummy row N, action 0, delta and mask 0. Lane
     1 is made a depth-1 lane while the bound stays the batch's deepest."""
-    got, _ = _descend_both(tree, edges, max_depth + 1, spec)
+    got, _ = _descend_both(tree, edges, max_depth + 1, spec, A=A)
     leaf_depth = got[2].clone()
     leaf_depth[1] = 1
     D = SIMS + 1
@@ -238,6 +238,42 @@ def test_update_skips_levels_past_the_bound():
     N = edges.shape[1] - 1
     np.testing.assert_array_equal(got.numpy()[:, :N], want[:, :N])
     assert ((got.numpy() != edges)[:, :N, mcts_stream.P_VISIT]).sum() == B  # level 0 only
+
+
+# A = 130 pads to A_pad = 256: the two 128-column chunks the CUDA descent
+# reads a row in (one chunk at gomoku's A = 121).
+WIDE = 130
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_descend_plain_matches_pallas_interpret_on_a_two_chunk_slab(num_players):
+    tree, edges, max_depth = _jax_slab(num_players, WIDE)
+    assert edges.shape[-1] == 256
+    spec, _ = _specs(num_players)
+    for bound in (max_depth + 1, 2):  # every lane's leaf, then lanes cut at 2
+        got, want = _descend_both(tree, edges, bound, spec, A=WIDE)
+        for name, g, w in zip(NAMES, got, want):
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert int(got[2].min()) == -1
+    assert (edges[:, :-1, mcts_stream.P_PRIOR, 128:WIDE] > 0).any()  # a live second chunk
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_update_plain_matches_pallas_interpret_on_a_two_chunk_slab(num_players):
+    tree, edges, max_depth = _jax_slab(num_players, WIDE)
+    spec, _ = _specs(num_players)
+    leaf_depth, pn, pa, delta, mask, _ = _live_paths(tree, edges, max_depth, spec, seed=6,
+                                                     A=WIDE)
+    bound = int(leaf_depth.max())
+    got = mcts_stream.update_edges_plain(torch.from_numpy(edges.copy()), pn, pa, delta, mask,
+                                         torch.tensor(bound, dtype=torch.int32))
+    want = np.asarray(jax_stream.update_edges_stream(
+        jnp.asarray(edges), *(jnp.asarray(x.numpy()) for x in (pn, pa, delta, mask)), bound,
+        interpret=True))
+    N = edges.shape[1] - 1
+    np.testing.assert_array_equal(got.numpy()[:, :N], want[:, :N])
+    changed = (got.numpy() != edges)[:, :N, mcts_stream.P_VISIT]
+    assert changed.sum() == int(leaf_depth.sum())
 
 
 @pytest.mark.parametrize("use_update_kernel", [True, False])
