@@ -19,14 +19,16 @@ In order, it:
       chunks of 8 moves, pretrained weights, tie jitter 1e-5; times 3 chunks
       and checks that the kernel was launched once per move. At the 4,096
       roots it reached, with the same tie jitter, it holds the kernel against
-      search_plain as in (a) and times both;
+      search_plain as in (a) and times both, with the kernel's time per
+      simulation and its share of the bound;
    c. plays 64 greedy lanes for 500 moves: mean return >= 100;
 4. the connect4 path (3 x 64 ResNet, the staged search with the planar
    descent and backprop kernels):
    a. each kernel against its plain version (descend_planar_plain,
       backprop_plain) on a real tree snapshot at 256 lanes taken after 100
       of 200 simulations, tie jitter 1e-5: descend outputs, visits, value
-      sums and min/max must be equal;
+      sums and min/max must be equal; the descent timed as the median of 5
+      CUDA graphs, with its time per level of the deepest lane;
    b. runs SelfPlayDriver on connect4 with the pretrained weights at 256
       lanes x 200 simulations, chunks of 8 moves; times 3 chunks after a
       warm-up, the move loop inside them apart from the host's episode
@@ -45,7 +47,7 @@ In order, it:
       of 200 simulations (12 rounds), tie jitter 1e-5, over the next round's
       8 selections: descend outputs and the marked slab at each selection,
       then the 8 paths' backprops (visits unchanged, value sums, root stats,
-      min/max) must be equal;
+      min/max) must be equal; the marking descent timed as in (a);
    f. runs SelfPlayDriver at 256 lanes x 200 simulations in 25 rounds of 8,
       chunks of 8 moves, as in (b); checks 200 launches of each mode per
       move and none of the unmarked ones, 25 recurrent inferences of 2,048
@@ -125,6 +127,16 @@ PEAK_BF16_FLOPS = 989e12  # dense bfloat16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 VALUE_TOL = 1e-5
 QUALITY_GAMES, QUALITY_WINS = 64, 48
+# The designs of the redesigned search kernels, for the kernels line.
+FUSED_DESIGN = ("a lane a group of 16 threads (two a warp) where the block's eight trees fit "
+                "its shared memory, else 32; the three heads' layers in joint passes; decodes "
+                "and softmax across the group, sums sequential on one thread each; numerator "
+                "and reciprocal tables, redux argmax, Philox only where the jitter can decide")
+DESCEND_DESIGN = ("one warp per lane, one lane a block, seven more warps building the tables; "
+                  "each thread one action's five loads issued together, one round trip a level "
+                  "(two passes above 32 actions); redux visit sum and argmax, the winner's "
+                  "child shuffled from its owner; numerator table and a predicted count (a "
+                  "miss redoes one product), exact table division")
 
 
 def log(msg):
@@ -408,10 +420,13 @@ def cartpole_path():
     flops, nbytes = search_work(cfg.parallel_games, driver.A, cfg.encoding_size,
                                 cfg.num_simulations, weights)
     b_ms, b_by = bound_ms(flops, nbytes)
+    per_sim_us = 1e3 * kernel_ms / cfg.num_simulations
     log(f"[cartpole] kernel {kernel_ms:.4f} ms/launch (CUDA events, 20 launches), "
         f"{100 * kernel_ms / move_ms:.1f}% of {move_ms:.4f} ms/move; "
         f"search_plain {plain_ms:.2f} ms/move; bound {b_ms:.6f} ms ({b_by}: "
         f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB)")
+    log(f"[cartpole] kernel per simulation (all {cfg.parallel_games} lanes): "
+        f"{per_sim_us:.3f} us; bound share {100 * b_ms / kernel_ms:.3f}% of the kernel's time")
     log(f"[cartpole] per move: {move_ms:.4f} ms = kernel {kernel_ms:.4f} + rest of the "
         f"move loop {loop_s * 1e3 / K - kernel_ms:.4f} (play_chunk {loop_s * 1e3 / K:.4f}) "
         f"+ host episode cuts {(chunk_s - loop_s) * 1e3 / K:.4f}")
@@ -435,6 +450,8 @@ def cartpole_path():
         "route": "cuda",
         "source": CSRC + "mcts_fused.cu",
         "replaces": "muzero_general_tpu/ops/mcts_fused.py:235",
+        "design": FUSED_DESIGN,
+        "per_sim_us": per_sim_us,
         "launches": launches,
         "visits_exact": True,  # check_equal failed the run otherwise
         "max_abs_err": main_err,  # the main path's roots, tie jitter on
@@ -564,7 +581,7 @@ def snapshot_checks(cfg, folded, env):
     w_tree = mcts_ops.Tree(*(x.clone() for x in tree))
     with torch.no_grad():
         d_call = cuda_ms(descend, 50)
-        d_ms = graph_ms(descend, 50)
+        d_ms = statistics.median(graph_ms(descend, 50) for _ in range(5))
         mcts_kernels.descend_planar_plain(*dargs, **dkw)
         d_plain = cuda_ms(lambda: mcts_kernels.descend_planar_plain(*dargs, **dkw), 1)
         b_call = cuda_ms(backprop, 50)
@@ -575,12 +592,19 @@ def snapshot_checks(cfg, folded, env):
     for name, ms, call, plain, bnd, by in (("descend_planar", d_ms, d_call, d_plain, d_bound,
                                             d_by),
                                            ("backprop", b_ms, b_call, b_plain, b_bound, b_by)):
-        log(f"[connect4] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches), "
+        log(f"[connect4] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches; "
+            f"descend_planar the median of 5 graphs), "
             f"{call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
             f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    # The chain's cost per level: the deepest lane sets a launch's length.
+    deepest = int(leaf_depth.max())
+    per_level_us = 1e3 * d_ms / deepest
+    log(f"[connect4] descend_planar per level of its deepest lane (depth {deepest}): "
+        f"{per_level_us:.3f} us ({d_ms:.4f} ms)")
     return {
         "descend_planar": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain, bound_ms=d_bound,
-                               bound_by=d_by, max_abs_err=d_err),
+                               bound_by=d_by, max_abs_err=d_err, per_level_us=per_level_us,
+                               deepest=deepest),
         "backprop": dict(ms=b_ms, call_ms=b_call, plain_ms=b_plain, bound_ms=b_bound,
                          bound_by=b_by, max_abs_err=bp_err),
     }
@@ -729,6 +753,15 @@ def quality_gate(cfg, folded, env, gate=True):
     return n_win
 
 
+def descend_fields(numbers):
+    """The fields a descent's entry of the kernels line adds: its design and
+    its time per level of the deepest lane (nothing for a backprop)."""
+    if "per_level_us" not in numbers:
+        return {}
+    return {"design": DESCEND_DESIGN, "per_level_us": numbers["per_level_us"],
+            "deepest": numbers["deepest"]}
+
+
 def connect4_path():
     """Phases 4a-4d; returns the two kernels' entries of the kernels line."""
     from muzero_general_tpu_torch.games.connect4 import MuZeroConfig, make_env
@@ -787,7 +820,7 @@ def connect4_path():
     entries = []
     for name, replaces in (("descend_planar", "muzero_general_tpu/ops/mcts_pallas.py:217"),
                            ("backprop", "muzero_general_tpu/ops/mcts_pallas.py:387")):
-        entries.append({
+        entries.append(descend_fields(kernels[name]) | {
             "name": name,
             "route": "cuda",
             "source": CSRC + "mcts_kernels.cu",
@@ -922,7 +955,7 @@ def multileaf_snapshot_checks(cfg, folded, env):
 
     with torch.no_grad():
         d_call = cuda_ms(descend, 50)
-        d_ms = graph_ms(descend, 50)
+        d_ms = statistics.median(graph_ms(descend, 50) for _ in range(5))
         mcts_kernels.descend_planar_plain(*dargs(w_tree, 0), **dkw)
         d_plain = cuda_ms(lambda: mcts_kernels.descend_planar_plain(*dargs(w_tree, 0), **dkw),
                           1)
@@ -936,11 +969,16 @@ def multileaf_snapshot_checks(cfg, folded, env):
                                            ("backprop (pre_marked)", b_ms, b_call, b_plain,
                                             b_bound, b_by)):
         log(f"[connect4 K=8] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 "
-            f"launches), {call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
-            f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+            f"launches; the descent the median of 5 graphs), {call:.4f} ms per call from "
+            f"Python (CUDA events, 50 calls), plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    deepest = int(sels[0][2].max())
+    per_level_us = 1e3 * d_ms / deepest
+    log(f"[connect4 K=8] descend_planar (mark_visits) per level of its deepest lane (depth "
+        f"{deepest}, the round's first selection): {per_level_us:.3f} us ({d_ms:.4f} ms)")
     return {
         "descend_planar_mark": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain,
-                                    bound_ms=d_bound, bound_by=d_by, max_abs_err=d_err),
+                                    bound_ms=d_bound, bound_by=d_by, max_abs_err=d_err,
+                                    per_level_us=per_level_us, deepest=deepest),
         "backprop_pre_marked": dict(ms=b_ms, call_ms=b_call, plain_ms=b_plain,
                                     bound_ms=b_bound, bound_by=b_by, max_abs_err=b_err),
     }
@@ -1030,7 +1068,7 @@ def connect4_multileaf_path():
     entries = []
     for name, replaces in (("descend_planar_mark", "muzero_general_tpu/ops/mcts_pallas.py:217"),
                            ("backprop_pre_marked", "muzero_general_tpu/ops/mcts_pallas.py:387")):
-        entries.append({
+        entries.append(descend_fields(kernels[name]) | {
             "name": name,
             "route": "cuda",
             "source": CSRC + "mcts_kernels.cu",
@@ -1115,6 +1153,7 @@ def node_major_descend_phase(out, legal, spec):
         "route": "cuda",
         "source": CSRC + "mcts_kernels.cu",
         "replaces": "muzero_general_tpu/ops/mcts_pallas.py:51",
+        "design": DESCEND_DESIGN + " (the planar kernel's body on node-major slabs)",
         "launches": launches,  # the timing loop, this phase's path
         "visits_exact": True,
         "max_abs_err": err,

@@ -44,14 +44,37 @@
 // "gathers" and selection matmuls (Mosaic lacks narrow gathers) become
 // direct indexing: each level reads only the current node's edges, and each
 // lane stops at its own unexpanded edge instead of looping to the batch-wide
-// bound. The descent gives each lane a warp, its threads over actions
-// (strides of 32, so any A works), with a shuffle argmax that takes the
-// first index among equal scores; the backprop gives each lane one thread
-// that walks its own path and needs no batch-wide bound. Several lanes per
-// block keep the SM's schedulers busy while one lane waits on a load.
-// Nothing here allocates: the wrapper passes every output. Faster designs
-// (the tree rows in shared memory, several lanes per warp, a CUDA graph
-// around the simulation loop) are later work.
+// bound. The descent keeps one level's chain to one memory round trip and
+// little else (a dependent global load costs ~1,000 cycles on this card,
+// PERF.md, kernel 2):
+// - One warp per lane, one lane a block, so 256 lanes spread over every SM;
+//   seven more warps of the block help build the launch's tables while the
+//   root's loads are in flight, then leave. Where A <= 32 each thread owns
+//   one action and issues its five loads (visit, value sum, prior, reward,
+//   child; the legal flag at the root) together; nothing is used before all
+//   are issued, and the next node's loads are issued as soon as the argmax
+//   names it, before the level's records. Wider rows are read in two passes
+//   (off every game's path).
+// - Warp-only reductions: the visit sum is one redux.sync add where every
+//   count is whole and the total below 2^24 (every search's slab: the plain
+//   version's float sum is then exact in any order), else the float
+//   butterfly; the argmax is a redux.sync max over an order-preserving key,
+//   then the first lane holding it (a ballot), as the plain version's
+//   argmax; the winner's child index and visit count come from its owner in
+//   one shuffle each, with no further load. The virtual-visit mark is a
+//   store by the owner, which holds the count.
+// - Off the chain: the pUCT numerator depends only on the parent's visit
+//   count, so each block tabulates it once per launch (the same float32
+//   operations: exact), and a level scores with the numerator of a
+//   predicted count (the visit count of the edge just taken) while the sum
+//   is reduced, redoing only the numerator's product if they differ (the
+//   rest of the score does not depend on it); divisions are exact table
+//   divisions (div_rn) where some edge of the node has a visit, IEEE ones
+//   where an operand leaves div_rn's range; each level's Philox words are
+//   computed while its loads are in flight.
+// The backprop gives each lane one thread that walks its own path and needs
+// no batch-wide bound. Nothing here allocates: the wrapper passes every
+// output.
 //
 // Tie jitter: as in csrc/mcts_fused.cu, a Philox4x32-10 stream keyed by the
 // wrapper's seed, counter (lane, simulation, level, action / 4); the plain
@@ -75,110 +98,345 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoEdge = 0x7fffffff;
+// Entries of the per-launch tables (12 bytes each: 48 KB, the most a block
+// takes without opting in).
+constexpr int kTableMax = 4096;
+// A visit sum whose terms are whole numbers in [0, 2^24) and whose total is
+// below 2^24 is exact in float32 in any order.
+constexpr unsigned kExact = 1u << 24;
+// Warps per block: warp 0 descends one lane's tree, and all eight build the
+// launch's tables (one entry a thread at N = 201), which one warp alone took
+// ~2,700 cycles to build, longer than the root row's loads (PERF.md, kernel
+// 2).
+constexpr int kDescendWarps = 8;
+
+}  // namespace
+
 struct DescendArgs {
-  int B, A, N, D, sim;
+  int B, A, N, D, sim, table_n;
   float pb_c_base, pb_c_init, disc_sign, jitter_scale;
   uint32_t key0, key1;
 };
 
-// kPlanar: [B, A, N] slabs, else node-major [B, N, A]. kMark: +1 visit on
-// every edge taken (the visit slab is then written).
-template <bool kPlanar, bool kMark>
-__global__ void descend_kernel(DescendArgs args, const int* __restrict__ depth_bound,
-                               const int* __restrict__ child, const float* __restrict__ prior,
-                               int* __restrict__ visit, const float* __restrict__ vsum,
-                               const float* __restrict__ reward, const int* __restrict__ legal,
-                               const float* __restrict__ min_value,
-                               const float* __restrict__ max_value, int* __restrict__ out_parent,
-                               int* __restrict__ out_action, int* __restrict__ out_depth,
-                               int* __restrict__ path_n, int* __restrict__ path_a) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= args.B) return;  // whole warps leave together
-  const int A = args.A, N = args.N, D = args.D;
-  int* pn = path_n + (size_t)b * D;
-  int* pa = path_a + (size_t)b * D;
-  for (int i = lane; i < D; i += 32) {
-    pn[i] = i == 0 ? 0 : -1;
-    pa[i] = 0;
-  }
-  __syncwarp();
+__device__ __forceinline__ float pb_c_numerator(float p, const DescendArgs& args) {
+  return (logf((p + args.pb_c_base + 1.f) / args.pb_c_base) + args.pb_c_init) * sqrtf(p);
+}
 
-  const float mn = min_value[b], mx = max_value[b];
-  const bool span_ok = mx > mn;
-  const float inv_span = 1.f / fmaxf(mx - mn, 1e-30f);
-  // The caller's bound on the descent length, capped at the tree's depth.
-  const int bound = min(*depth_bound, D - 1);
+// The same, for counts past the table: a call, so that the compiler cannot
+// compute it alongside every table read.
+__device__ __noinline__ float pb_c_numerator_call(float p, DescendArgs args) {
+  return pb_c_numerator(p, args);
+}
+
+// The launch's shared tables: the pUCT numerator of parent visit count p,
+// and 1 / b correctly rounded to double, for whole p, b in [0, n).
+struct Tables {
+  const float* num;
+  const double* rcp;
+  int n;
+};
+
+__device__ __forceinline__ float numerator(int p, const Tables& tab, const DescendArgs& args) {
+  return p < tab.n ? tab.num[p] : pb_c_numerator_call((float)p, args);
+}
+
+// a / b correctly rounded, without the branch of the IEEE division's slow
+// path, for b a whole number in [1, tab.n) (a visit count + 1, or at least
+// 1), given as an int, and a zero or finite with |a| >= 2^-100:
+// RN_double(a * RN_double(1 / b)), within 2^-52 of a / b, rounded once to
+// float. An exact quotient a / b (b below 2^24) is never a float midpoint
+// (its odd part would need 25 bits) and lies at least 2^-49 (relative) from
+// every one, so that rounding is the correctly rounded quotient (as
+// csrc/mcts_stream.cu). The table index comes straight from the count, with
+// no float conversion on the chain. ok is cleared where `need` and the
+// operands leave that range.
+__device__ __forceinline__ float div_rn(float a, int b, bool need, const Tables& tab, bool& ok) {
+  const bool in_table = (unsigned)(b - 1) < (unsigned)(tab.n - 1);
+  const float m = fabsf(a);
+  const bool in_range = (a == 0.f) | ((m >= 0x1p-100f) & (m <= 3.4028234e38f));
+  ok &= !need | (in_table & in_range);
+  return __double2float_rn((double)a * tab.rcp[in_table ? b : 1]);
+}
+
+// One edge of the current node, as the thread that owns it holds it.
+struct Edge {
+  int vis, child;
+  float vsum, prior, reward;
+};
+
+// Per-launch values shared by every edge of the lane.
+struct Level {
+  float mn, inv_span;
+  bool span_ok;
+};
+
+// The edge's pUCT score with numerator pb, with IEEE divisions: the plain
+// version's float32 operations in its order.
+__device__ __forceinline__ float score_ieee(const Edge& e, float pb, const Level& lv,
+                                           const DescendArgs& args) {
+  const float cvis = (float)e.vis;
+  const bool visited = cvis > 0.f;
+  const float cval = visited ? e.vsum / fmaxf(cvis, 1.f) : 0.f;
+  const float q = e.reward + args.disc_sign * cval;
+  const float qn = lv.span_ok ? (q - lv.mn) * lv.inv_span : q;
+  return pb / (cvis + 1.f) * e.prior + (visited ? qn : 0.f);
+}
+
+// The same score in two parts: what does not depend on the numerator (the
+// value term, and 1 / (cvis + 1) for div_rn), computed once a level, and
+// finish(), which applies a numerator: RN(pb / (cvis + 1)) * prior + term.
+// So a level that scores with a predicted numerator and learns the summed
+// one redoes only finish(). An edge with no visits scores pb / (0 + 1) *
+// prior + 0 = pb * prior + 0 exactly, so where no edge of the node has a
+// visit (any_visits false, warp-uniform; deep in a tree most nodes) nothing
+// is divided. ok is cleared where div_rn cannot stand in for the divisions.
+struct Part {
+  double rcp;  // RN_double(1 / (cvis + 1))
+  float prior, term;
+  bool ok;
+};
+
+__device__ __forceinline__ Part partial(const Edge& e, bool any_visits, const Level& lv,
+                                        const DescendArgs& args, const Tables& tab) {
+  if (!any_visits) return {1.0, e.prior, 0.f, true};
+  bool ok = true;
+  const bool visited = e.vis > 0;
+  // fmaxf(cvis, 1) and cvis + 1 as whole numbers (counts in [0, 2^24): the
+  // table's range, the IEEE division's outside it).
+  const float vq = div_rn(e.vsum, max(e.vis, 1), visited, tab, ok);
+  const float q = e.reward + args.disc_sign * (visited ? vq : 0.f);
+  const float qn = lv.span_ok ? (q - lv.mn) * lv.inv_span : q;
+  const bool in_table = (unsigned)e.vis < (unsigned)(tab.n - 1);
+  return {tab.rcp[in_table ? e.vis + 1 : 1], e.prior, visited ? qn : 0.f, ok && in_table};
+}
+
+__device__ __forceinline__ float finish(const Part& pt, float pb) {
+  return __double2float_rn((double)pb * pt.rcp) * pt.prior + pt.term;
+}
+
+// div_rn's range for the numerator itself (a dividend).
+__device__ __forceinline__ bool dividend_ok(float a) {
+  const float m = fabsf(a);
+  return (a == 0.f) | ((m >= 0x1p-100f) & (m <= 3.4028234e38f));
+}
+
+// A key whose unsigned order is the float order of a score, -0 and +0 equal
+// (as the plain version's argmax compares them), every real score (-inf
+// included) above 0, the key of no edge and of a NaN score.
+__device__ __forceinline__ uint32_t order_key(float s) {
+  if (s != s) return 0u;
+  const uint32_t u = __float_as_uint(s == 0.f ? 0.f : s);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ uint32_t jitter_word(const DescendArgs& args, int b, int t, int a) {
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)b, (uint32_t)args.sim, (uint32_t)t, (uint32_t)(a >> 2)), args.key0,
+      args.key1);
+  const int j = a & 3;
+  return j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w;
+}
+
+// A thread's term of the visit sum's exactness test: the visit count where
+// it is a whole number in [0, 2^24), else 2^24 (never exact).
+__device__ __forceinline__ unsigned exact_term(int v) {
+  return v >= 0 ? min((unsigned)v, kExact) : kExact;
+}
+
+// The plain version's pUCT numerator where the visit sum is not exact in
+// float32 (off every search's path): the float sum of each thread's partial
+// sum, in a butterfly, + 1 for an interior node.
+__device__ __noinline__ float numerator_float(float part, bool interior, DescendArgs args) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
+  return pb_c_numerator(part + (interior ? 1.f : 0.f), args);
+}
+
+// kPlanar: [B, A, N] slabs, else node-major [B, N, A]. kMark: +1 visit on
+// every edge taken (the visit slab is then written). kWide: A > 32, each
+// level read in two passes; else every thread owns one action (a = its
+// lane) and a level is one memory round trip.
+template <bool kPlanar, bool kMark, bool kWide>
+__global__ void __launch_bounds__(32 * kDescendWarps)
+    descend_kernel(DescendArgs args, const int* __restrict__ depth_bound,
+                   const int* __restrict__ child, const float* __restrict__ prior,
+                   int* __restrict__ visit, const float* __restrict__ vsum,
+                   const float* __restrict__ reward, const int* __restrict__ legal,
+                   const float* __restrict__ min_value, const float* __restrict__ max_value,
+                   int* __restrict__ out_parent, int* __restrict__ out_action,
+                   int* __restrict__ out_depth, int* __restrict__ path_n,
+                   int* __restrict__ path_a) {
+  extern __shared__ double s_rcp[];  // [table_n], then the numerators [table_n]
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  const bool live = threadIdx.x < 32;  // warp 0: the lane's descent
+  const int A = args.A, N = args.N, D = args.D;
   const size_t lane_base = (size_t)b * A * N;
   // Edge (node, action) of this lane.
   auto edge = [&](int node, int a) -> size_t {
     return lane_base + (kPlanar ? (size_t)a * N + node : (size_t)node * A + a);
   };
+  auto load_edge = [&](size_t e) -> Edge {
+    return {visit[e], child[e], vsum[e], prior[e], reward[e]};
+  };
 
-  int current = 0, depth = 0, parent = 0, action = 0;
+  // The root's edges and the lane's scalars first: nothing on their way
+  // waits, and the tables below are built while they are in flight.
+  const bool owns = !kWide && lane < A;  // kWide: every thread takes every 32nd action
+  Edge r = {0, -1, 0.f, 0.f, 0.f};
+  bool legal_a = false;
+  float mn = 0.f, mx = 0.f;
+  int bound = 0;
+  if (live) {
+    if (owns) {
+      r = load_edge(edge(0, lane));
+      legal_a = legal[(size_t)b * A + lane] != 0;
+    }
+    mn = min_value[b];
+    mx = max_value[b];
+    // The caller's bound on the descent length, capped at the tree's depth.
+    bound = min(*depth_bound, D - 1);
+  }
+  // The pUCT numerator (log((p + base + 1) / base) + init) * sqrt(p) depends
+  // only on the parent's visit count p, a whole number: tabulated once per
+  // launch with the same float32 operations, so a table read is exact.
+  float* s_num = reinterpret_cast<float*>(s_rcp + args.table_n);
+#pragma unroll 2
+  for (int p = threadIdx.x; p < args.table_n; p += 32 * kDescendWarps) {
+    s_num[p] = pb_c_numerator((float)p, args);
+    s_rcp[p] = p > 0 ? 1.0 / (double)p : 0.0;
+  }
+  __syncthreads();
+  if (!live) return;  // the helper warps leave
+  const Tables tab = {s_num, s_rcp, args.table_n};
+  const Level lv = {mn, 1.f / fmaxf(mx - mn, 1e-30f), mx > mn};
+  const bool jitter = args.jitter_scale > 0.f;
+  int* pn = path_n + (size_t)b * D;
+  int* pa = path_a + (size_t)b * D;
+
+  // The parent's visit count p of the next node, predicted: in a tree whose
+  // backups are complete (virtual visits included: a mark on an edge comes
+  // with one below it or on the unexpanded edge) a node's edge visits sum to
+  // the visit count of the edge into it minus one, and p adds one back. A
+  // level scores with that guess while the visit sum is reduced, and redoes
+  // the numerator's product (finish) only if the sum disagrees: the summed
+  // p's result on any slab, the reduction off the chain on a consistent one.
+  int spec_p = -1;
+  float spec_pb = 0.f;
+  int current = 0, depth = 0, parent = 0, action = 0, t = 0;
   bool active = true;
-  for (int t = 0; t < bound && active; ++t) {
-    // visit(node): the sum of its edge visits, +1 for an interior node's
-    // expansion (integers below 2^24: exact in any order).
-    float part = 0.f;
-    for (int a = lane; a < A; a += 32) part += (float)visit[edge(current, a)];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    const float pvis = part + (current != 0 ? 1.f : 0.f);
-    const float pb_c_num =
-        (logf((pvis + args.pb_c_base + 1.f) / args.pb_c_base) + args.pb_c_init) * sqrtf(pvis);
-
-    float best_s = -INFINITY;
-    int best_a = 0x7fffffff;
-    for (int a = lane; a < A; a += 32) {
-      const size_t e = edge(current, a);
-      const float cvis = (float)visit[e];
-      const float cval = cvis > 0.f ? vsum[e] / fmaxf(cvis, 1.f) : 0.f;
-      const float prior_score = pb_c_num / (cvis + 1.f) * prior[e];
-      const float q = reward[e] + args.disc_sign * cval;
-      const float qn = span_ok ? (q - mn) * inv_span : q;
-      float score = prior_score + (cvis > 0.f ? qn : 0.f);
-      if (current == 0 && legal[b * A + a] == 0) score = -INFINITY;
-      if (args.jitter_scale > 0.f) {
-        const uint4 r = philox4x32_10(
-            make_uint4((uint32_t)b, (uint32_t)args.sim, (uint32_t)t, (uint32_t)(a >> 2)),
-            args.key0, args.key1);
-        const uint32_t w4[4] = {r.x, r.y, r.z, r.w};
-        score = score + (float)w4[a & 3] * args.jitter_scale;
+  for (; t < bound && active; ++t) {
+    int a_win, next, w_vis, owner;
+    if constexpr (!kWide) {
+      // This level's jitter word, while the row's loads are in flight.
+      const uint32_t word = jitter && owns ? jitter_word(args, b, t, lane) : 0u;
+      // p: one integer redux where every count is whole and the total below
+      // 2^24 (every search's slab), exactly the plain version's float sum.
+      const int v = owns ? r.vis : 0;
+      const unsigned sum = __reduce_add_sync(kFull, exact_term(v));
+      const bool exact = sum < kExact;
+      const int p = (int)sum + (current != 0 ? 1 : 0);
+      const bool any_visits = __any_sync(kFull, v != 0);
+      const Part pt = partial(r, any_visits, lv, args, tab);
+      const bool parts_ok = __all_sync(kFull, pt.ok);
+      float pb = spec_pb;
+      float s = finish(pt, pb);
+      if (p != spec_p || !exact) {  // warp-uniform
+        pb = exact ? numerator(p, tab, args) : numerator_float((float)v, current != 0, args);
+        s = finish(pt, pb);
       }
-      if (score > best_s || (score == best_s && a < best_a)) {
-        best_s = score;
-        best_a = a;
+      if (!parts_ok || !dividend_ok(pb)) s = score_ieee(r, pb, lv, args);  // warp-uniform
+      if (current == 0 && !legal_a) s = -INFINITY;
+      if (jitter) s = s + (float)word * args.jitter_scale;
+      // The argmax: the highest key, then the first lane holding it (lane
+      // order is action order); action 0 if every score is NaN.
+      const uint32_t key = owns ? order_key(s) : 0u;
+      const uint32_t top = __reduce_max_sync(kFull, key);
+      owner = top != 0u ? __ffs(__ballot_sync(kFull, key == top)) - 1 : 0;
+      a_win = owner;
+      next = __shfl_sync(kFull, r.child, owner);
+      w_vis = __shfl_sync(kFull, r.vis, owner);
+      // The virtual-visit mark, after this level's scores, by the thread
+      // that read the count (so a later read of it on this lane's path, in
+      // this thread, sees it): a store, no atomics (the warp owns its lane's
+      // slab).
+      if (kMark && lane == owner) visit[edge(current, a_win)] = r.vis + 1;
+      // The next level's row, first (after the mark: a cycle in a slab that is
+      // not a tree may lead back to this node, and this thread reads it).
+      if (next >= 0 && owns) r = load_edge(edge(next, lane));
+    } else {
+      // Pass 1: the visit count, as above.
+      unsigned x = 0;
+      float part = 0.f;
+      for (int a = lane; a < A; a += 32) {
+        const int v = visit[edge(current, a)];
+        x = min(x + exact_term(v), kExact);
+        part += (float)v;
+      }
+      const unsigned sum = __reduce_add_sync(kFull, x);
+      const float pb = sum < kExact ? numerator((int)sum + (current != 0 ? 1 : 0), tab, args)
+                                    : numerator_float(part, current != 0, args);
+      // Pass 2: each thread's best action (IEEE divisions: this path is off
+      // every game's), then the warp's: the highest key, then the lowest
+      // action holding it.
+      uint32_t best_key = 0u;
+      int best_a = kNoEdge, best_child = -1, best_vis = 0;
+      for (int a = lane; a < A; a += 32) {
+        const Edge e = load_edge(edge(current, a));
+        float s = score_ieee(e, pb, lv, args);
+        if (current == 0 && legal[(size_t)b * A + a] == 0) s = -INFINITY;
+        if (jitter) s = s + (float)jitter_word(args, b, t, a) * args.jitter_scale;
+        const uint32_t key = order_key(s);
+        if (key > best_key) {
+          best_key = key;
+          best_a = a;
+          best_child = e.child;
+          best_vis = e.vis;
+        }
+      }
+      const uint32_t top = __reduce_max_sync(kFull, best_key);
+      if (top != 0u) {
+        a_win = (int)__reduce_min_sync(kFull, best_key == top ? (uint32_t)best_a : 0xffffffffu);
+        owner = a_win & 31;
+        next = __shfl_sync(kFull, best_child, owner);
+        w_vis = __shfl_sync(kFull, best_vis, owner);
+        if (kMark && lane == owner) visit[edge(current, a_win)] = best_vis + 1;
+      } else {  // every score NaN: action 0, whose thread is lane 0
+        a_win = owner = 0;
+        next = child[edge(current, 0)];
+        w_vis = visit[edge(current, 0)];
+        if (kMark && lane == 0) visit[edge(current, 0)] = w_vis + 1;
       }
     }
-    // warp argmax, first index among equal scores
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(0xffffffffu, best_s, off);
-      const int oa = __shfl_xor_sync(0xffffffffu, best_a, off);
-      if (os > best_s || (os == best_s && oa < best_a)) {
-        best_s = os;
-        best_a = oa;
-      }
-    }
-    if (best_a >= A) best_a = 0;  // only if every score is NaN
-    if (lane == 0) pa[t] = best_a;
-    // The virtual-visit mark, after this level's scores (every thread's
-    // loads of this node's visits fed the shuffles above, so none is still
-    // pending). One thread adds: the warp owns its lane's slab, so there are
-    // no atomics. No thread reads this entry again: the next level reads the
-    // child's edges, and a descent never revisits a node.
-    if (kMark && lane == 0) visit[edge(current, best_a)] += 1;
-    const int next = child[edge(current, best_a)];
+    if (lane == 0) pa[t] = a_win;
     if (next < 0) {
       parent = current;
-      action = best_a;
+      action = a_win;
       active = false;
     } else {
       current = next;
       depth += 1;
       if (lane == 0) pn[depth] = current;
+      if ((unsigned)w_vis < (unsigned)tab.n) {
+        spec_p = w_vis;
+        spec_pb = tab.num[w_vis];
+      } else {
+        spec_p = -1;
+      }
     }
+  }
+  // Levels the lane did not reach keep the padding: node -1 past the last
+  // recorded node, action 0 past the last recorded level.
+  for (int i = lane; i < D; i += 32) {
+    if (i == 0)
+      pn[0] = 0;  // the root at depth 0
+    else if (i > depth)
+      pn[i] = -1;
+    if (i >= t) pa[i] = 0;
   }
   if (lane == 0) {
     out_parent[b] = parent;
@@ -249,7 +507,6 @@ __global__ void backprop_kernel(BackpropArgs args, const int* __restrict__ path_
   max_value[b] = mx;
 }
 
-static const int kDescendLanesPerBlock = 4;
 static const int kBackpropThreads = 128;
 
 extern "C" const char* mcts_kernels_error_string(int code) {
@@ -270,26 +527,37 @@ static int launch_descend(bool planar, bool mark, const int* depth_bound, const 
   args.N = N;
   args.D = D;
   args.sim = sim;
+  // Parent visit counts reach N + 1 on a search's tree (N - 1 simulations'
+  // visits and an interior node's expansion, K marks of a round within them).
+  args.table_n = N + 2 < kTableMax ? N + 2 : kTableMax;
   args.pb_c_base = pb_c_base;
   args.pb_c_init = pb_c_init;
   args.disc_sign = disc_sign;
   args.jitter_scale = jitter_scale;
   args.key0 = (uint32_t)(seed & 0xffffffffull);
   args.key1 = (uint32_t)(seed >> 32);
-  const int blocks = (B + kDescendLanesPerBlock - 1) / kDescendLanesPerBlock;
-  const int threads = 32 * kDescendLanesPerBlock;
+  const int blocks = B;  // one lane a block
+  const int threads = 32 * kDescendWarps;
+  const size_t smem = (size_t)args.table_n * (sizeof(double) + sizeof(float));
   cudaStream_t s = (cudaStream_t)stream;
-#define MCTS_DESCEND(P, M)                                                                     \
-  descend_kernel<P, M><<<blocks, threads, 0, s>>>(args, depth_bound, child, prior, visit, vsum, \
-                                                  reward, legal, min_value, max_value,          \
-                                                  out_parent, out_action, out_depth, path_n,    \
-                                                  path_a)
-  if (!planar)
-    MCTS_DESCEND(false, false);
+#define MCTS_DESCEND(P, M, W)                                                                   \
+  descend_kernel<P, M, W><<<blocks, threads, smem, s>>>(args, depth_bound, child, prior, visit, \
+                                                        vsum, reward, legal, min_value,        \
+                                                        max_value, out_parent, out_action,     \
+                                                        out_depth, path_n, path_a)
+  const bool wide = A > 32;
+  if (!planar && wide)
+    MCTS_DESCEND(false, false, true);
+  else if (!planar)
+    MCTS_DESCEND(false, false, false);
+  else if (mark && wide)
+    MCTS_DESCEND(true, true, true);
   else if (mark)
-    MCTS_DESCEND(true, true);
+    MCTS_DESCEND(true, true, false);
+  else if (wide)
+    MCTS_DESCEND(true, false, true);
   else
-    MCTS_DESCEND(true, false);
+    MCTS_DESCEND(true, false, false);
 #undef MCTS_DESCEND
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,9 @@ tree kernels' outputs (paths, visits, value sums, min/max) are equal, and so
 are the stream kernels' (every descend output, every live slab row).
 """
 
+from types import SimpleNamespace
+from typing import NamedTuple
+
 import pytest
 import torch
 
@@ -141,6 +144,56 @@ def test_selfplay_runs_through_the_kernel(cuda):
     _, stats = driver.play(temperature=1.0)
     assert mcts_fused.search.launches == before + 5
     assert stats["env_steps"] == 160 and stats["max_tree_depth"] >= 1
+
+
+@pytest.mark.parametrize("support_size", [10, 20])
+def test_kernel_support_sizes(cuda, support_size):
+    """Supports of 21 and 41 logits (more than a warp's threads), tie jitter
+    on: the decodes run across the group and sum from index 0 on one thread,
+    so the kernel still matches search_plain."""
+    cfg = MuZeroConfig()
+    cfg.support_size = support_size
+    args, kw, legal = _inputs(cfg, 48, 1, True, 6, cuda)
+    _check_equal(args, kw | {"tie_jitter": 1e-5, "seed": 21}, legal, cfg.num_simulations)
+
+
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_kernel_layers_wider_than_a_warp(cuda, num_players):
+    """A net whose layers are 48 and 40 wide (one lane a warp), two hidden
+    layers in two of the heads (their passes run together), tie jitter on."""
+    cfg = BaseConfig()
+    cfg.observation_shape = (1, 1, 6)
+    cfg.action_space = list(range(5))
+    cfg.players = list(range(num_players))
+    cfg.encoding_size = 12
+    cfg.fc_dynamics_layers = [48]
+    cfg.fc_reward_layers = [40, 24]
+    cfg.fc_value_layers = [48]
+    cfg.fc_policy_layers = [40, 33]
+    args, kw, legal = _inputs(cfg, 41, num_players, True, 7, cuda)
+    _check_equal(args, kw | {"tie_jitter": 1e-5, "seed": 9}, legal, cfg.num_simulations)
+
+
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+def test_kernel_one_action(cuda, tie_jitter):
+    """A = 1: every descent takes action 0 to the leaf, the root's visits are
+    the simulations."""
+    cfg = MuZeroConfig()
+    cfg.action_space = [0]
+    args, kw, legal = _inputs(cfg, 24, 1, True, 8, cuda)
+    _check_equal(args, kw | {"tie_jitter": tie_jitter, "seed": 3}, legal,
+                 cfg.num_simulations)
+
+
+def test_kernel_400_simulations(cuda):
+    """400 simulations: the numerator and reciprocal tables reach 402
+    entries, the trees are deep, and two lanes' trees no longer fit a
+    two-lanes-a-warp block, so the kernel takes one lane a warp; tie jitter
+    on."""
+    cfg = MuZeroConfig()
+    cfg.num_simulations = 400
+    args, kw, legal = _inputs(cfg, 12, 1, True, 9, cuda)
+    _check_equal(args, kw | {"tie_jitter": 1e-5, "seed": 5}, legal, cfg.num_simulations)
 
 
 # ---- the staged search's tree kernels --------------------------------------
@@ -356,6 +409,126 @@ def test_node_major_descend_kernel_matches_plain_and_planar(cuda, num_players, t
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="shape"):
         mcts_kernels.descend(*args[:3], tree.children_index, *args[4:], **kw)
+
+
+class _PlanarTree(NamedTuple):
+    """The planar slabs and MinMaxStats a descent reads."""
+
+    children_index: torch.Tensor
+    children_prior: torch.Tensor
+    children_visit: torch.Tensor
+    children_vsum: torch.Tensor
+    children_reward: torch.Tensor
+    min_value: torch.Tensor
+    max_value: torch.Tensor
+
+
+def _random_planar_tree(dev, B, A, N, seed, max_visit=7):
+    """Random planar [B, A, N] slabs, not a search's: visit counts 1 to
+    max_visit on 10% of the edges (half of them at A = 1), value sums from 1e-38 to 1e30 in
+    magnitude (below 2^-100 the kernel's quotients take the IEEE division),
+    random priors and rewards, child links to random nodes (cycles included:
+    the bound cuts them) on visited edges; a random legal mask with one
+    legal action at least, and min/max values."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    visited = rand(B, A, N) < (0.5 if A == 1 else 0.1)
+    visit = torch.where(visited, torch.floor(rand(B, A, N) * max_visit) + 1, 0.0)
+    scale = torch.pow(10.0, rand(B, A, N) * 68 - 38)
+    vsum = (rand(B, A, N) * 2 - 1) * scale * visited
+    child = torch.where(visited, torch.floor(rand(B, A, N) * (N - 1)) + 1, -1.0)
+    legal = (rand(B, A) < 0.8).to(torch.int32)
+    legal[torch.arange(B, device=dev), torch.randint(0, A, (B,), generator=gen, device=dev)] = 1
+    lo = -rand(B)
+    tree = _PlanarTree(child.to(torch.int32), rand(B, A, N) / A, visit.to(torch.int32), vsum,
+                       rand(B, A, N) * 2 - 1, lo, lo + 2)
+    return tree, legal
+
+
+def _assert_planar_descents_equal(tree, legal, bound, spec, mark_visits, seed=3, sim=9):
+    """descend_planar and its plain version on copies of the visit slab: all
+    five outputs and (mark_visits) the marked slab equal."""
+    outs = []
+    for fn in (mcts_kernels.descend_planar, mcts_kernels.descend_planar_plain):
+        t = tree._replace(children_visit=tree.children_visit.clone())
+        args, kw = _descend_args(t, spec, legal, bound, sim, seed, spec.tie_jitter)
+        outs.append(fn(*args, mark_visits=mark_visits, **kw) + (t.children_visit,))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("parent", "action", "leaf_depth", "path_nodes", "path_actions",
+                           "visits"), *outs):
+        assert torch.equal(g, w), name
+    return outs[0]
+
+
+def _planar_spec(N, num_players, tie_jitter):
+    return SimpleNamespace(num_players=num_players, pb_c_base=19652.0, pb_c_init=1.25,
+                           discount=0.97 if num_players == 1 else 1.0, max_depth=N - 1,
+                           tie_jitter=tie_jitter)
+
+
+@pytest.mark.parametrize("mark_visits", [False, True], ids=["descend", "mark"])
+@pytest.mark.parametrize("A", [1, 7, 32, 33, 40])
+def test_descend_planar_kernel_matches_plain_on_random_rows(cuda, A, mark_visits):
+    """Random rows of N = 401 nodes, A = 1 to 40 actions (above 32 the kernel
+    reads a level in two passes): all outputs and the marked slab equal,
+    without and with tie jitter, one and two players; then with a bound of
+    2, which cuts lanes."""
+    B, N = 64, 401
+    tree, legal = _random_planar_tree(cuda, B, A, N, seed=A + 100 * mark_visits)
+    bound = torch.tensor(40, dtype=torch.int32, device=cuda)
+    for num_players, jitter in ((1, 0.0), (2, 1e-5)):
+        kw = _planar_spec(N, num_players, jitter)
+        got = _assert_planar_descents_equal(tree, legal, bound, kw, mark_visits)
+        assert bool((got[3][:, 2] >= 0).any())  # some lane went two levels down
+    cut = torch.tensor(2, dtype=torch.int32, device=cuda)
+    got = _assert_planar_descents_equal(tree, legal, cut, _planar_spec(N, 2, 1e-5),
+                                        mark_visits)
+    assert bool((got[2] == -1).any())
+
+
+@pytest.mark.parametrize("mark_visits", [False, True], ids=["descend", "mark"])
+@pytest.mark.parametrize("A", [7, 40])
+def test_descend_planar_kernel_past_its_tables(cuda, A, mark_visits):
+    """Nine nodes whose edges carry up to 60 visits: parent visit counts pass
+    the kernel's numerator table (N + 2 entries) and the divisors its
+    reciprocal table, so it computes the numerator and divides in IEEE
+    there; all outputs equal."""
+    B, N = 64, 9
+    tree, legal = _random_planar_tree(cuda, B, A, N, seed=7 + A, max_visit=60)
+    tree = tree._replace(children_visit=torch.where(
+        tree.children_visit > 0, tree.children_visit, 0).contiguous())
+    assert int(tree.children_visit.sum((1, 2)).max()) > N + 2
+    bound = torch.tensor(N - 1, dtype=torch.int32, device=cuda)
+    for num_players, jitter in ((1, 0.0), (2, 1e-5)):
+        _assert_planar_descents_equal(tree, legal, bound, _planar_spec(N, num_players, jitter),
+                                      mark_visits)
+
+
+@pytest.mark.parametrize("tie_jitter", [0.0, 1e-5])
+@pytest.mark.parametrize("A", [1, 7, 32, 33, 40])
+def test_descend_planar_kernel_breaks_ties_at_every_width(cuda, A, tie_jitter):
+    """All-tied fresh roots (equal priors, no visits), both modes: without
+    jitter the first legal action wins, with it the Philox stream decides,
+    as in the plain version."""
+    B, N = 96, 9
+    i32 = dict(dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(A)
+    legal = (torch.rand((B, A), generator=gen, device=cuda) < 0.6).to(torch.int32)
+    legal[:, A - 1] = 1
+    inf = torch.full((B,), float("inf"), device=cuda)
+    zeros = torch.zeros((B, A, N), device=cuda)
+    tree = _PlanarTree(torch.full((B, A, N), -1, **i32), torch.full((B, A, N), 1.0 / A,
+                                                                    device=cuda),
+                       torch.zeros((B, A, N), **i32), zeros, zeros, inf, -inf)
+    bound = torch.tensor(3, **i32)
+    for mark_visits in (False, True):
+        got = _assert_planar_descents_equal(tree, legal, bound,
+                                            _planar_spec(N, 2, tie_jitter), mark_visits)
+        if tie_jitter == 0.0:
+            assert torch.equal(got[1].long(), torch.argmax(legal, dim=1))
 
 
 @pytest.mark.parametrize("dtype, rest", [(torch.float32, (64, 6, 7)),
