@@ -27,8 +27,9 @@ In order, it:
    a. each kernel against its plain version (descend_planar_plain,
       backprop_plain) on a real tree snapshot at 256 lanes taken after 100
       of 200 simulations, tie jitter 1e-5: descend outputs, visits, value
-      sums and min/max must be equal; the descent timed as the median of 5
-      CUDA graphs, with its time per level of the deepest lane;
+      sums and min/max must be equal; each timed as the median of 5 CUDA
+      graphs of 50 launches, with its time per level of the deepest lane,
+      and the backprop's floor (the same launch with every leaf depth -1);
    b. runs SelfPlayDriver on connect4 with the pretrained weights at 256
       lanes x 200 simulations, chunks of 8 moves; times 3 chunks after a
       warm-up, the move loop inside them apart from the host's episode
@@ -47,7 +48,8 @@ In order, it:
       of 200 simulations (12 rounds), tie jitter 1e-5, over the next round's
       8 selections: descend outputs and the marked slab at each selection,
       then the 8 paths' backprops (visits unchanged, value sums, root stats,
-      min/max) must be equal; the marking descent timed as in (a);
+      min/max) must be equal; the marking descent and the first path's
+      pre-marked backprop timed as in (a), with the backprop's floor;
    f. runs SelfPlayDriver at 256 lanes x 200 simulations in 25 rounds of 8,
       chunks of 8 moves, as in (b); checks 200 launches of each mode per
       move and none of the unmarked ones, 25 recurrent inferences of 2,048
@@ -72,8 +74,10 @@ In order, it:
       400 simulations, tie jitter 1e-5: all eight descend outputs equal; the
       slab's live rows after an update equal, with every 8th lane cut to a
       depth-1 leaf while the bound stays the deepest lane's, so masked
-      levels (aimed at the dummy row) are exercised; the descent's time per
-      level of its deepest lane;
+      levels (aimed at the dummy row) are exercised; each timed as the
+      median of 5 CUDA graphs of 50 launches, the descent's time per level
+      of its deepest lane, and the update's floor (the same launch with
+      bound 0);
    b. runs SelfPlayDriver on gomoku at 64 lanes x 400 simulations, chunks of
       2 moves; times 3 chunks after a warm-up, the move loop apart from the
       host's episode cuts; checks the stream route with the BN folded, 400
@@ -137,6 +141,15 @@ DESCEND_DESIGN = ("one warp per lane, one lane a block, seven more warps buildin
                   "(two passes above 32 actions); redux visit sum and argmax, the winner's "
                   "child shuffled from its owner; numerator table and a predicted count (a "
                   "miss redoes one product), exact table division")
+BACKPROP_DESIGN = ("one warp per lane, a thread per path entry; round trip 1 the lane's scalars "
+                   "and first 32 path entries together, round trip 2 every live edge's visit, "
+                   "value sum and reward; only the value chain serial (a shuffle and two flops "
+                   "a level), each level's division and stat on its owner, min/max by redux "
+                   "over order-preserving keys; chunks of 32 from the leaf end, a chunk that "
+                   "repeats an edge (__match_any_sync) walked serially")
+UPDATE_DESIGN = ("a thread per (level, lane) slot; the bound and the slot's mask, node, action "
+                 "and delta issued together (round trip 1), then a live slot's visit and value "
+                 "sum (round trip 2) and the two stores")
 
 
 def log(msg):
@@ -550,10 +563,10 @@ def snapshot_checks(cfg, folded, env):
     slabs = ("children_visit", "children_vsum", "root_visit", "root_vsum", "min_value",
              "max_value")
 
-    def bp_args(t):
-        return (got[3], got[4], leaf_depth, leaf_value, t.children_visit, t.children_vsum,
-                t.children_reward, t.root_visit, t.root_vsum, t.root_reward, t.min_value,
-                t.max_value)
+    def bp_args(t, depth=None):
+        return (got[3], got[4], leaf_depth if depth is None else depth, leaf_value,
+                t.children_visit, t.children_vsum, t.children_reward, t.root_visit, t.root_vsum,
+                t.root_reward, t.min_value, t.max_value)
 
     bkw = dict(num_players=spec.num_players, discount=spec.discount, planar=True)
     k_tree = mcts_ops.Tree(*(x.clone() for x in tree))
@@ -578,35 +591,43 @@ def snapshot_checks(cfg, folded, env):
     def backprop():
         return mcts_kernels.backprop(*bp_args(w_tree), **bkw)
 
+    def backprop_floor():  # the same launch with nothing to back up
+        return mcts_kernels.backprop(*bp_args(w_tree, no_leaf), **bkw)
+
     w_tree = mcts_ops.Tree(*(x.clone() for x in tree))
+    no_leaf = torch.full_like(leaf_depth, -1)
     with torch.no_grad():
         d_call = cuda_ms(descend, 50)
         d_ms = statistics.median(graph_ms(descend, 50) for _ in range(5))
         mcts_kernels.descend_planar_plain(*dargs, **dkw)
         d_plain = cuda_ms(lambda: mcts_kernels.descend_planar_plain(*dargs, **dkw), 1)
         b_call = cuda_ms(backprop, 50)
-        b_ms = graph_ms(backprop, 50)
+        b_ms = statistics.median(graph_ms(backprop, 50) for _ in range(5))
+        b_floor = statistics.median(graph_ms(backprop_floor, 50) for _ in range(5))
         b_plain = cuda_ms(lambda: mcts_kernels.backprop_plain(*bp_args(w_tree), **bkw), 1)
     d_bound, d_by = bound_ms(*descend_work(leaf_depth, int(depth_bound), B, A, D))
     b_bound, b_by = bound_ms(*backprop_work(leaf_depth, B))
     for name, ms, call, plain, bnd, by in (("descend_planar", d_ms, d_call, d_plain, d_bound,
                                             d_by),
                                            ("backprop", b_ms, b_call, b_plain, b_bound, b_by)):
-        log(f"[connect4] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches; "
-            f"descend_planar the median of 5 graphs), "
-            f"{call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
+        log(f"[connect4] {name} {ms:.4f} ms/launch on the card (median of 5 CUDA graphs of 50 "
+            f"launches), {call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
             f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
     # The chain's cost per level: the deepest lane sets a launch's length.
     deepest = int(leaf_depth.max())
     per_level_us = 1e3 * d_ms / deepest
-    log(f"[connect4] descend_planar per level of its deepest lane (depth {deepest}): "
-        f"{per_level_us:.3f} us ({d_ms:.4f} ms)")
+    b_per_level_us = 1e3 * b_ms / deepest
+    log(f"[connect4] per level of the deepest lane (depth {deepest}): descend_planar "
+        f"{per_level_us:.3f} us ({d_ms:.4f} ms), backprop {b_per_level_us:.3f} us "
+        f"({b_ms:.4f} ms); backprop floor (every leaf depth -1, the same launch) "
+        f"{b_floor:.4f} ms")
     return {
         "descend_planar": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain, bound_ms=d_bound,
                                bound_by=d_by, max_abs_err=d_err, per_level_us=per_level_us,
                                deepest=deepest),
         "backprop": dict(ms=b_ms, call_ms=b_call, plain_ms=b_plain, bound_ms=b_bound,
-                         bound_by=b_by, max_abs_err=bp_err),
+                         bound_by=b_by, max_abs_err=bp_err, per_level_us=b_per_level_us,
+                         deepest=deepest, floor_ms=b_floor),
     }
 
 
@@ -753,13 +774,16 @@ def quality_gate(cfg, folded, env, gate=True):
     return n_win
 
 
-def descend_fields(numbers):
-    """The fields a descent's entry of the kernels line adds: its design and
-    its time per level of the deepest lane (nothing for a backprop)."""
-    if "per_level_us" not in numbers:
-        return {}
-    return {"design": DESCEND_DESIGN, "per_level_us": numbers["per_level_us"],
-            "deepest": numbers["deepest"]}
+def design_fields(name, numbers):
+    """The fields a tree kernel's entry of the kernels line adds: its design,
+    its time per level of the deepest lane and (backprop) its floor, the
+    same launch with nothing to back up."""
+    design = BACKPROP_DESIGN if name.startswith("backprop") else DESCEND_DESIGN
+    fields = {"design": design, "per_level_us": numbers["per_level_us"],
+              "deepest": numbers["deepest"]}
+    if "floor_ms" in numbers:
+        fields["floor_ms"] = numbers["floor_ms"]
+    return fields
 
 
 def connect4_path():
@@ -820,7 +844,7 @@ def connect4_path():
     entries = []
     for name, replaces in (("descend_planar", "muzero_general_tpu/ops/mcts_pallas.py:217"),
                            ("backprop", "muzero_general_tpu/ops/mcts_pallas.py:387")):
-        entries.append(descend_fields(kernels[name]) | {
+        entries.append(design_fields(name, kernels[name]) | {
             "name": name,
             "route": "cuda",
             "source": CSRC + "mcts_kernels.cu",
@@ -920,11 +944,11 @@ def multileaf_snapshot_checks(cfg, folded, env):
     bkw = dict(num_players=spec.num_players, discount=spec.discount, planar=True,
                pre_marked=True)
 
-    def bp_args(t, k):
+    def bp_args(t, k, depth=None):
         s = sels[k]
-        return (s[3], s[4], s[2], values[k], t.children_visit, t.children_vsum,
-                t.children_reward, t.root_visit, t.root_vsum, t.root_reward, t.min_value,
-                t.max_value)
+        return (s[3], s[4], s[2] if depth is None else depth, values[k], t.children_visit,
+                t.children_vsum, t.children_reward, t.root_visit, t.root_vsum, t.root_reward,
+                t.min_value, t.max_value)
 
     k_bp = mcts_ops.Tree(*(x.clone() for x in marked))
     p_bp = mcts_ops.Tree(*(x.clone() for x in marked))
@@ -953,6 +977,10 @@ def multileaf_snapshot_checks(cfg, folded, env):
     def backprop():
         return mcts_kernels.backprop(*bp_args(w_bp, 0), **bkw)
 
+    def backprop_floor():  # the same launch with nothing to back up
+        return mcts_kernels.backprop(*bp_args(w_bp, 0, no_leaf), **bkw)
+
+    no_leaf = torch.full_like(sels[0][2], -1)
     with torch.no_grad():
         d_call = cuda_ms(descend, 50)
         d_ms = statistics.median(graph_ms(descend, 50) for _ in range(5))
@@ -960,7 +988,8 @@ def multileaf_snapshot_checks(cfg, folded, env):
         d_plain = cuda_ms(lambda: mcts_kernels.descend_planar_plain(*dargs(w_tree, 0), **dkw),
                           1)
         b_call = cuda_ms(backprop, 50)
-        b_ms = graph_ms(backprop, 50)
+        b_ms = statistics.median(graph_ms(backprop, 50) for _ in range(5))
+        b_floor = statistics.median(graph_ms(backprop_floor, 50) for _ in range(5))
         b_plain = cuda_ms(lambda: mcts_kernels.backprop_plain(*bp_args(w_bp, 0), **bkw), 1)
     d_bound, d_by = bound_ms(*descend_work(sels[0][2], int(depth_bound), B, A, D, marked=True))
     b_bound, b_by = bound_ms(*backprop_work(sels[0][2], B, pre_marked=True))
@@ -968,19 +997,24 @@ def multileaf_snapshot_checks(cfg, folded, env):
                                             d_plain, d_bound, d_by),
                                            ("backprop (pre_marked)", b_ms, b_call, b_plain,
                                             b_bound, b_by)):
-        log(f"[connect4 K=8] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 "
-            f"launches; the descent the median of 5 graphs), {call:.4f} ms per call from "
-            f"Python (CUDA events, 50 calls), plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+        log(f"[connect4 K=8] {name} {ms:.4f} ms/launch on the card (median of 5 CUDA graphs "
+            f"of 50 launches), {call:.4f} ms per call from Python (CUDA events, 50 calls), "
+            f"plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
     deepest = int(sels[0][2].max())
     per_level_us = 1e3 * d_ms / deepest
-    log(f"[connect4 K=8] descend_planar (mark_visits) per level of its deepest lane (depth "
-        f"{deepest}, the round's first selection): {per_level_us:.3f} us ({d_ms:.4f} ms)")
+    b_per_level_us = 1e3 * b_ms / deepest
+    log(f"[connect4 K=8] per level of the deepest lane (depth {deepest}, the round's first "
+        f"selection): descend_planar (mark_visits) {per_level_us:.3f} us ({d_ms:.4f} ms), "
+        f"backprop (pre_marked) {b_per_level_us:.3f} us ({b_ms:.4f} ms); backprop floor "
+        f"(every leaf depth -1, the same launch) {b_floor:.4f} ms")
     return {
         "descend_planar_mark": dict(ms=d_ms, call_ms=d_call, plain_ms=d_plain,
                                     bound_ms=d_bound, bound_by=d_by, max_abs_err=d_err,
                                     per_level_us=per_level_us, deepest=deepest),
         "backprop_pre_marked": dict(ms=b_ms, call_ms=b_call, plain_ms=b_plain,
-                                    bound_ms=b_bound, bound_by=b_by, max_abs_err=b_err),
+                                    bound_ms=b_bound, bound_by=b_by, max_abs_err=b_err,
+                                    per_level_us=b_per_level_us, deepest=deepest,
+                                    floor_ms=b_floor),
     }
 
 
@@ -1068,7 +1102,7 @@ def connect4_multileaf_path():
     entries = []
     for name, replaces in (("descend_planar_mark", "muzero_general_tpu/ops/mcts_pallas.py:217"),
                            ("backprop_pre_marked", "muzero_general_tpu/ops/mcts_pallas.py:387")):
-        entries.append(descend_fields(kernels[name]) | {
+        entries.append(design_fields(name, kernels[name]) | {
             "name": name,
             "route": "cuda",
             "source": CSRC + "mcts_kernels.cu",
@@ -1362,9 +1396,13 @@ def stream_snapshot_checks(cfg, folded, env):
         return mcts_stream.descend_stream(*dargs, **dkw)
 
     w_edges = edges.clone()
+    no_level = torch.zeros_like(bound)
 
     def update():
         return mcts_stream.update_edges(w_edges, pn, pa, delta, mask, bound)
+
+    def update_floor():  # the same launch with nothing to update
+        return mcts_stream.update_edges(w_edges, pn, pa, delta, mask, no_level)
 
     with torch.no_grad():
         d_call = cuda_ms(descend, 50)
@@ -1372,7 +1410,8 @@ def stream_snapshot_checks(cfg, folded, env):
         mcts_stream.descend_stream_plain(*dargs, **dkw)
         d_plain = cuda_ms(lambda: mcts_stream.descend_stream_plain(*dargs, **dkw), 1)
         u_call = cuda_ms(update, 50)
-        u_ms = graph_ms(update, 50)
+        u_ms = statistics.median(graph_ms(update, 50) for _ in range(5))
+        u_floor = statistics.median(graph_ms(update_floor, 50) for _ in range(5))
         u_plain = cuda_ms(
             lambda: mcts_stream.update_edges_plain(w_edges, pn, pa, delta, mask, bound), 1)
     d_bound, d_by = bound_ms(*stream_descend_work(lane_levels, B, A, D))
@@ -1381,10 +1420,10 @@ def stream_snapshot_checks(cfg, folded, env):
                                             d_by),
                                            ("update_edges", u_ms, u_call, u_plain, u_bound,
                                             u_by)):
-        log(f"[gomoku] {name} {ms:.4f} ms/launch on the card (CUDA graph of 50 launches; "
-            f"descend_stream the median of 5 graphs), "
-            f"{call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
+        log(f"[gomoku] {name} {ms:.4f} ms/launch on the card (median of 5 CUDA graphs of 50 "
+            f"launches), {call:.4f} ms per call from Python (CUDA events, 50 calls), plain "
             f"{plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+    log(f"[gomoku] update_edges floor (bound 0, the same launch): {u_floor:.4f} ms")
     # The chain's cost per level: the deepest lane sets a launch's length.
     deepest = int(leaf_depth.max())
     per_level_us = 1e3 * d_ms / deepest
@@ -1396,7 +1435,7 @@ def stream_snapshot_checks(cfg, folded, env):
                                bound_by=d_by, max_abs_err=d_err, per_level_us=per_level_us,
                                deepest=deepest),
         "update_edges": dict(ms=u_ms, call_ms=u_call, plain_ms=u_plain, bound_ms=u_bound,
-                             bound_by=u_by, max_abs_err=u_err),
+                             bound_by=u_by, max_abs_err=u_err, floor_ms=u_floor),
     }
 
 
@@ -1493,6 +1532,9 @@ def gomoku_path():
                 "pUCT numerator tabulated in smem once per launch and predicted from the "
                 "edge taken; root legal mask in registers, Philox words while the loads fly")
             entry["per_level_us"] = k["per_level_us"]  # ms / the deepest lane's depth
+        else:
+            entry["design"] = UPDATE_DESIGN
+            entry["floor_ms"] = k["floor_ms"]  # bound 0: the same launch, nothing to update
         entries.append(entry)
     return entries
 

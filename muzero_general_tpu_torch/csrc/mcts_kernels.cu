@@ -36,9 +36,9 @@
 // megabyte per launch, under a microsecond at the card's 3.35 TB/s. What
 // bounds them is latency: each level of a descent is a dependent chain (a
 // global load of the node's edges, a log and a sqrt, a warp argmax, then
-// the child's index decides the next load), and the backprop is a dependent
-// read-modify-write chain along the path. So a launch costs roughly the
-// deepest lane's chain plus the launch itself.
+// the child's index decides the next load), and the backprop's walk from
+// leaf to root, where only the value recurrence is truly serial. So a
+// launch costs roughly the deepest lane's chain plus the launch itself.
 //
 // What the design does about that. The TPU kernel's one-hot mask-reduce
 // "gathers" and selection matmuls (Mosaic lacks narrow gathers) become
@@ -72,9 +72,10 @@
 //   divisions (div_rn) where some edge of the node has a visit, IEEE ones
 //   where an operand leaves div_rn's range; each level's Philox words are
 //   computed while its loads are in flight.
-// The backprop gives each lane one thread that walks its own path and needs
-// no batch-wide bound. Nothing here allocates: the wrapper passes every
-// output.
+// The backprop gives each lane one warp, a thread per level, and needs no
+// batch-wide bound: two memory round trips for a path of up to 32 levels,
+// then the value chain from registers (see backprop_kernel). Nothing here
+// allocates: the wrapper passes every output.
 //
 // Tie jitter: as in csrc/mcts_fused.cu, a Philox4x32-10 stream keyed by the
 // wrapper's seed, counter (lane, simulation, level, action / 4); the plain
@@ -452,62 +453,178 @@ struct BackpropArgs {
   float discount, disc_sign;
 };
 
-__global__ void backprop_kernel(BackpropArgs args, const int* __restrict__ path_n,
-                                const int* __restrict__ path_a,
-                                const int* __restrict__ leaf_depth,
-                                const float* __restrict__ leaf_value,
-                                const float* __restrict__ reward,
-                                const float* __restrict__ root_reward, int* __restrict__ visit,
-                                float* __restrict__ vsum, int* __restrict__ root_visit,
-                                float* __restrict__ root_vsum, float* __restrict__ min_value,
-                                float* __restrict__ max_value) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= args.B) return;
-  const int L = leaf_depth[b];
-  const int* pn = path_n + (size_t)b * args.D;
-  const int* pa = path_a + (size_t)b * args.D;
-  const size_t base = (size_t)b * args.NA;
-  float value = leaf_value[b];
-  float mn = min_value[b], mx = max_value[b];
-  int rvis = root_visit[b];
-  float rvsum = root_vsum[b];
-  for (int t_rev = 0; t_rev <= L; ++t_rev) {
-    const int t = L - t_rev;
+// A load kept in program order: volatile, so the compiler does not sink it
+// below the branch on another load's value that follows (a round trip's
+// loads must all be in flight before the first of them is used).
+__device__ __forceinline__ int load_now(const int* p) {
+  int v;
+  asm volatile("ld.global.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float load_now(const float* p) {
+  float v;
+  asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// An integer key of a MinMax stat whose signed order is the order fminf and
+// fmaxf give floats on this card, -0 below +0 (stats are never NaN), so a
+// redux.sync min or max of keys is the serial fold's result in any order.
+__device__ __forceinline__ int minmax_key(float x) {
+  const int i = __float_as_int(x);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float from_minmax_key(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+// Lanes a block of the backprop, one warp each: four measured 0-5% faster
+// than one and 6-13% faster than eight (PERF.md, kernel 3).
+constexpr int kBackpropLanes = 4;
+
+// One chunk of a lane's path: entries lo .. hi - 1 (the edges of levels
+// lo + 1 .. hi), thread j owning entry lo + j and holding its edge's offset
+// e, old visit ev, old value sum es and reward r. Every thread runs the
+// value chain over the chunk, leaf end first, and the owner of each entry
+// keeps that level's delta; value and t_rev carry on to the next chunk. The
+// chain is the plain version's, each operation rounded on its own. kSerial
+// (a chunk that repeats an edge): each owner in turn rereads its edge,
+// which a deeper level of the chunk may have written, and writes it back
+// before the next level reads, as a serial walk does. Returns the owner's
+// delta.
+template <bool kSerial>
+__device__ __forceinline__ float chain_chunk(const BackpropArgs& args, int lo, int hi, int j,
+                                             float r, size_t e, int& ev, float& es,
+                                             float& value, int& t_rev, int* visit,
+                                             float* vsum) {
+  float mine = 0.f;
+  for (int k = hi - 1; k >= lo; --k) {
+    const int owner = k - lo;
+    const float nrew = __shfl_sync(kFull, r, owner);
     // node_to_play == the leaf's player <=> t_rev even (two players)
     const float sgn = (args.num_players == 1 || (t_rev & 1) == 0) ? 1.f : -1.f;
     const float delta = value * sgn;
-    float nval, nrew;
-    if (t >= 1) {  // the node's stats are its incoming edge's
-      const size_t e = base + (size_t)pn[t - 1] * args.stride_n + (size_t)pa[t - 1] * args.stride_a;
-      const float ev_old = (float)visit[e];
-      const float es_new = vsum[e] + delta;
-      vsum[e] = es_new;
-      // Pre-marked: the descent already counted this visit, so the count
-      // read is the new one.
-      if (!args.pre_marked) visit[e] = visit[e] + 1;
-      nval = es_new / (args.pre_marked ? fmaxf(ev_old, 1.f) : ev_old + 1.f);
-      nrew = reward[e];
-    } else {  // the root keeps explicit scalars
-      rvsum = rvsum + delta;
-      if (!args.pre_marked) rvis = rvis + 1;
-      nval = rvsum / (float)max(rvis, 1);
-      nrew = root_reward[b];
+    if (j == owner) {
+      mine = delta;
+      if (kSerial) {
+        ev = visit[e];
+        es = vsum[e];
+        vsum[e] = es + delta;
+        if (!args.pre_marked) visit[e] = ev + 1;
+      }
     }
-    const float stat = nrew + args.disc_sign * nval;
-    mn = fminf(mn, stat);
-    mx = fmaxf(mx, stat);
+    if (kSerial) __syncwarp();
     if (args.num_players == 1)
       value = nrew + args.discount * value;
     else
       value = -sgn * nrew + args.discount * value;
+    ++t_rev;
   }
-  root_visit[b] = rvis;
-  root_vsum[b] = rvsum;
-  min_value[b] = mn;
-  max_value[b] = mx;
+  return mine;
 }
 
-static const int kBackpropThreads = 128;
+// The backprop, one warp per lane. Only the value chain is serial: it needs
+// each level's reward and about two flops a level, so it runs from
+// registers (a shuffle a level) once the path's edges have arrived. Every
+// memory access is off that chain:
+// - round trip 1: the lane's leaf depth (one broadcast request) and the
+//   first 32 path entries, none waiting on another (ptxas moves the other
+//   scalars' loads past a leafless lane's exit, beside round trip 2, which
+//   needs them no sooner);
+// - round trip 2: each live entry's visit, value sum and reward, issued
+//   together by their owners;
+// - then the chain, each level's new value sum, node value (IEEE division)
+//   and MinMax stat on its owner in parallel, the min/max as one redux.sync
+//   each over order-preserving keys (fminf and fmaxf order -0 below +0 in
+//   either operand order on this card, so any order gives the serial
+//   fold's bits), and the stores.
+// Deeper paths run in chunks of 32 entries from the leaf end, each chunk's
+// stores before the next chunk's loads (a __syncwarp orders them), so a
+// level reads what any deeper chunk wrote. On a search's tree a lane's edges
+// are distinct; a chunk that repeats an edge (found by __match_any_sync over
+// its offsets) walks its levels one after another instead.
+__global__ void __launch_bounds__(32 * kBackpropLanes)
+    backprop_kernel(BackpropArgs args, const int* __restrict__ path_n,
+                    const int* __restrict__ path_a, const int* __restrict__ leaf_depth,
+                    const float* __restrict__ leaf_value, const float* __restrict__ reward,
+                    const float* __restrict__ root_reward, int* __restrict__ visit,
+                    float* __restrict__ vsum, int* __restrict__ root_visit,
+                    float* __restrict__ root_vsum, float* __restrict__ min_value,
+                    float* __restrict__ max_value) {
+  const int b = blockIdx.x * kBackpropLanes + (threadIdx.x >> 5);
+  if (b >= args.B) return;  // whole warps
+  const int j = threadIdx.x & 31;
+  const int* pn = path_n + (size_t)b * args.D;
+  const int* pa = path_a + (size_t)b * args.D;
+  // Round trip 1.
+  const int L = load_now(leaf_depth + b);
+  float value = load_now(leaf_value + b);
+  const int rvis = load_now(root_visit + b);
+  const float rvsum = load_now(root_vsum + b);
+  const float rrew = load_now(root_reward + b);
+  const float mn = load_now(min_value + b), mx = load_now(max_value + b);
+  int n0 = 0, a0 = 0;
+  if (j < args.D) {
+    n0 = load_now(pn + j);
+    a0 = load_now(pa + j);
+  }
+  if (L < 0) return;  // nothing to back up: every output keeps its value
+  const size_t base = (size_t)b * args.NA;
+  float lmn = INFINITY, lmx = -INFINITY;  // this thread's stats
+  int t_rev = 0;                          // levels folded so far
+  for (int c = (L - 1) >> 5; c >= 0; --c) {
+    const int lo = c << 5, hi = min(L, lo + 32), i = lo + j;
+    const bool live = i < hi;
+    int n = n0, a = a0;
+    if (c > 0) {  // entries past the first 32: loaded once L is known
+      n = live ? pn[i] : 0;
+      a = live ? pa[i] : 0;
+    }
+    const int off = n * args.stride_n + a * args.stride_a;
+    const size_t e = base + (size_t)off;
+    // Round trip 2.
+    int ev = 0;
+    float es = 0.f, r = 0.f;
+    if (live) {
+      ev = visit[e];
+      es = vsum[e];
+      r = reward[e];
+    }
+    const unsigned same = __match_any_sync(kFull, live ? off : -1 - j);
+    const bool repeat = __any_sync(kFull, live && __popc(same) > 1);
+    const float delta =
+        repeat ? chain_chunk<true>(args, lo, hi, j, r, e, ev, es, value, t_rev, visit, vsum)
+               : chain_chunk<false>(args, lo, hi, j, r, e, ev, es, value, t_rev, visit, vsum);
+    if (live) {
+      const float es_new = es + delta;
+      if (!repeat) {
+        vsum[e] = es_new;
+        if (!args.pre_marked) visit[e] = ev + 1;
+      }
+      // Pre-marked: the descent already counted this visit, so the count
+      // read is the new one.
+      const float ev_old = (float)ev;
+      const float nval = es_new / (args.pre_marked ? fmaxf(ev_old, 1.f) : ev_old + 1.f);
+      const float stat = r + args.disc_sign * nval;
+      lmn = fminf(lmn, stat);
+      lmx = fmaxf(lmx, stat);
+    }
+    __syncwarp();  // this chunk's stores before a shallower chunk's loads
+  }
+  // The root keeps explicit scalars (t = 0, t_rev = L).
+  const float sgn = (args.num_players == 1 || (L & 1) == 0) ? 1.f : -1.f;
+  const float rvsum_new = rvsum + value * sgn;
+  const int rvis_new = args.pre_marked ? rvis : rvis + 1;
+  const float rstat = rrew + args.disc_sign * (rvsum_new / (float)max(rvis_new, 1));
+  lmn = from_minmax_key(__reduce_min_sync(kFull, minmax_key(lmn)));
+  lmx = from_minmax_key(__reduce_max_sync(kFull, minmax_key(lmx)));
+  if (j == 0) {
+    root_vsum[b] = rvsum_new;
+    if (!args.pre_marked) root_visit[b] = rvis_new;
+    min_value[b] = fminf(fminf(mn, lmn), rstat);
+    max_value[b] = fmaxf(fmaxf(mx, lmx), rstat);
+  }
+}
 
 extern "C" const char* mcts_kernels_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -618,8 +735,8 @@ extern "C" int mcts_backprop(const int* path_n, const int* path_a, const int* le
   args.pre_marked = pre_marked != 0;
   args.discount = discount;
   args.disc_sign = disc_sign;
-  const int blocks = (B + kBackpropThreads - 1) / kBackpropThreads;
-  backprop_kernel<<<blocks, kBackpropThreads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (B + kBackpropLanes - 1) / kBackpropLanes;
+  backprop_kernel<<<blocks, 32 * kBackpropLanes, 0, (cudaStream_t)stream>>>(
       args, path_n, path_a, leaf_depth, leaf_value, reward, root_reward, visit, vsum, root_visit,
       root_vsum, min_value, max_value);
   return (int)cudaGetLastError();

@@ -27,8 +27,9 @@
 // dependent chain (the row's loads, the visit sum, the scores, the argmax,
 // then the chosen child decides the next row), so a launch costs about its
 // deepest lane's chain, levels times the latency of one level. The update
-// is one short dependent read-modify-write per thread, so it costs about a
-// launch.
+// is two round trips a thread (its slot's words, then its edge's), so it
+// costs a launch and those two round trips; its floor, the same launch
+// with nothing to update, is most of it (PERF.md, kernel 5).
 //
 // What the descent's design does about that: it keeps one level's chain to
 // one memory round trip and little else.
@@ -82,7 +83,12 @@
 // double-buffered row read-modify-writes: one thread per (level, lane) adds
 // to its own edge. Within one call every live target is distinct (a descent
 // never repeats an edge), so no atomics are needed; masked levels, aimed at
-// the dummy row by backprop_stream, return early.
+// the dummy row by backprop_stream, write nothing. What the design does
+// about the round trips: each thread issues all five reads it needs before
+// it knows whether its slot is live (the bound, mask, node, action and
+// delta, all in bounds) together, so a live slot's edge read is the second
+// round trip, not the third; one-warp blocks spread gomoku's [401, 64]
+// slots over every SM.
 //
 // Tie jitter: as in csrc/mcts_kernels.cu, a Philox4x32-10 stream keyed by
 // the wrapper's seed, counter (lane, simulation, level, action / 4); the
@@ -99,7 +105,12 @@ constexpr int kVisit = 0, kVsum = 1, kReward = 2, kPrior = 3, kChild = 4;
 constexpr int kChunk = 128;       // columns per chunk: 32 threads x 4
 constexpr int kTable = 2048;      // entries of the shared tables (24 KB)
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kUpdateThreads = 256;
+// The edge update's blocks: one warp, so that gomoku's 25,664 slots spread
+// over every SM (802 blocks; 256-thread blocks filled 101 SMs and took
+// 19-24% longer than 64-thread ones, which took 5-20% longer than one
+// warp: PERF.md, kernel 5), one slot a thread (four slots a thread,
+// grid-stride, took 40% longer).
+constexpr int kUpdateThreads = 32;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
   const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
@@ -513,20 +524,48 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+// A load kept in program order: volatile, so the compiler does not sink it
+// below the branch on another load's value that follows (a round trip's
+// loads must all be in flight before the first of them is used).
+__device__ __forceinline__ int load_now(const int* p) {
+  int v;
+  asm volatile("ld.global.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float load_now(const float* p) {
+  float v;
+  asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// The edge update, a thread per (level, lane) slot. Every read a slot needs
+// before it knows whether it is live is in bounds (the bound, its mask,
+// node, action and delta), so all five are issued together: round trip 1.
+// Only then does the slot decide; a live one reads its edge's visit and
+// value sum (round trip 2) and writes both back.
 __global__ void __launch_bounds__(kUpdateThreads)
     update_edges_kernel(int B, int N1, int A_pad, int D, const int* __restrict__ bound,
                         float* __restrict__ edges, const int* __restrict__ path_n,
                         const int* __restrict__ path_a, const float* __restrict__ delta,
                         const float* __restrict__ mask) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= D * B) return;
+  const int i = blockIdx.x * kUpdateThreads + threadIdx.x;
+  const bool slot = i < D * B;
+  const int top = load_now(bound);
+  float m = 0.f, d = 0.f;
+  int n = 0, a = 0;
+  if (slot) {
+    m = load_now(mask + i);
+    n = load_now(path_n + i);
+    a = load_now(path_a + i);
+    d = load_now(delta + i);
+  }
   const int t = i / B, b = i - t * B;
-  const float m = mask[i];
-  if (t >= *bound || m == 0.f) return;
-  float* row = edges + ((size_t)b * N1 + path_n[i]) * kPlanes * A_pad;
-  const int a = path_a[i];
-  row[kVisit * A_pad + a] = row[kVisit * A_pad + a] + m;
-  row[kVsum * A_pad + a] = row[kVsum * A_pad + a] + delta[i];
+  if (slot && t < top && m != 0.f) {
+    float* row = edges + ((size_t)b * N1 + n) * kPlanes * A_pad;
+    const float v = row[kVisit * A_pad + a], vs = row[kVsum * A_pad + a];
+    row[kVisit * A_pad + a] = v + m;
+    row[kVsum * A_pad + a] = vs + d;
+  }
 }
 
 }  // namespace

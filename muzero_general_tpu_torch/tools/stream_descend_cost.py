@@ -1,12 +1,17 @@
-"""Device time of the stream descent on gomoku's mid-search slab.
+"""Device time of the stream descent and the edge update on gomoku's
+mid-search slab.
 
 Builds the slab that chip_smoke.py's phase 8a builds (gomoku, 64 lanes ten
 random plies into a game, the 6 x 128 ResNet with seeded random weights, 200
 of 400 simulations on the stream route) with the port found under --root,
 holds `descend_stream` against `descend_stream_plain` (all eight outputs
-equal), and times `descend_stream` as the median of --graphs CUDA graphs of
-50 launches each. Prints the card's name and power limit, then one JSON
-line: ms per launch and us per level of the deepest lane.
+equal) and `update_edges` on that descent's paths (phase 8a's: every 8th
+lane cut to a depth-1 leaf under the deepest lane's bound) against
+`update_edges_plain` (every live slab row equal), and times each as the
+median of --graphs CUDA graphs of 50 launches; the update also with bound
+0, the same launch with nothing to update (its floor). Prints the card's
+name and power limit, then one JSON line: ms per launch, us per level of
+the deepest lane (descent), the update's ms and floor_ms.
 
     python3 muzero_general_tpu_torch/tools/stream_descend_cost.py [--root DIR] [--graphs 9]
 
@@ -65,6 +70,7 @@ def main():
     with torch.no_grad():
         out = mcts_ops.run_mcts(folded.initial_inference, folded.recurrent_inference, obs,
                                 legal, to_play, gen, spec, seed=seed, num_steps=sim)
+    D = cfg.num_simulations + 1
     edges = mcts_stream.pack_tree(out.tree, A)
     depth_bound = (out.max_tree_depth.max() + 1).to(torch.int32)
     dargs = (seed, sim, depth_bound, edges, legal.to(torch.int32).contiguous(),
@@ -79,30 +85,53 @@ def main():
             raise SystemExit("stream_descend_cost: descend_stream differs from its plain version")
     deepest = int(got[2].max())
 
-    def descend():
-        mcts_stream.descend_stream(*dargs, **dkw)
+    # The update on this descent's paths, as chip_smoke.py's phase 8a hands
+    # them over: every 8th lane cut to a depth-1 leaf, the bound the deepest
+    # lane's, masked levels aimed at the dummy row.
+    upd_depth = got[2].clone()
+    upd_depth[::8] = 1
+    live = torch.arange(D, device=dev)[:, None] < upd_depth[None, :].long()
+    delta = torch.randn((D, B), generator=gen, device=dev) * live
+    pn = torch.where(live, got[3], edges.shape[1] - 1)
+    pa = torch.where(live, got[4], 0)
+    mask = live.to(torch.float32)
+    bound = torch.amax(upd_depth)
+    k_edges = mcts_stream.update_edges(edges.clone(), pn, pa, delta, mask, bound)
+    p_edges = mcts_stream.update_edges_plain(edges.clone(), pn, pa, delta, mask, bound)
+    torch.cuda.synchronize()
+    if not torch.equal(k_edges[:, :-1].view(torch.int32), p_edges[:, :-1].view(torch.int32)):
+        raise SystemExit("stream_descend_cost: update_edges differs from its plain version")
 
-    samples = []
-    with torch.no_grad():
-        for _ in range(args.graphs):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(50):
-                    descend()
-            graph.replay()  # warm
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            torch.cuda.synchronize()
-            samples.append(start.elapsed_time(end) / 50)
-    ms = statistics.median(samples)
+    def timed(fn):
+        samples = []
+        with torch.no_grad():
+            for _ in range(args.graphs):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    for _ in range(50):
+                        fn()
+                graph.replay()  # warm
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.replay()
+                end.record()
+                torch.cuda.synchronize()
+                samples.append(start.elapsed_time(end) / 50)
+        return statistics.median(samples), samples
+
+    ms, samples = timed(lambda: mcts_stream.descend_stream(*dargs, **dkw))
+    w_edges = edges.clone()
+    none = torch.zeros_like(bound)
+    u_ms, u_samples = timed(lambda: mcts_stream.update_edges(w_edges, pn, pa, delta, mask, bound))
+    f_ms, f_samples = timed(lambda: mcts_stream.update_edges(w_edges, pn, pa, delta, mask, none))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
     print(json.dumps({"root": str(root), "ms": ms, "per_level_us": 1e3 * ms / deepest,
-                      "deepest": deepest, "samples_ms": samples}))
+                      "deepest": deepest, "samples_ms": samples,
+                      "update_edges": {"ms": u_ms, "floor_ms": f_ms, "bound": int(bound),
+                                       "samples_ms": u_samples, "floor_samples_ms": f_samples}}))
 
 
 if __name__ == "__main__":

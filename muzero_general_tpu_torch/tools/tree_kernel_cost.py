@@ -1,4 +1,5 @@
-"""Device time of the planar descent (both modes) and the fused search.
+"""Device time of the planar descent and the backprop (both modes) and the
+fused search.
 
 Builds the inputs chip_smoke.py's phases 4a, 4e and 3b build, with the port
 found under --root: connect4's 256-lane tree after 100 of 200 simulations
@@ -7,13 +8,19 @@ found under --root: connect4's 256-lane tree after 100 of 200 simulations
 self-play (the pretrained FC net, 50 simulations, tie jitter on), and the
 same search on phase 3a's 64-wide net (seeded weights) at 4,096 random
 roots. Holds `descend_planar` (both modes) against `descend_planar_plain`
-(all outputs and the marked slab equal) and `search` against
-`search_plain` (visits and depth equal, root values within 1e-5), then
-times each kernel: the descent
-as the median of --graphs CUDA graphs of 50 launches, the fused search as
-the median of --graphs runs of 5 launches between CUDA events. Prints the
-card's name and power limit, then one JSON line: ms per launch, us per
-level of the deepest lane (descent), us per simulation (fused search).
+(all outputs and the marked slab equal), `backprop` on the next descent's
+paths (K = 1) and pre-marked on the round's 8 marking paths folded one
+after another (K = 8) against `backprop_plain` (all six outputs equal),
+and `search` against `search_plain` (visits and depth equal, root values
+within 1e-5), then times each kernel: the descent and the backprop as the
+median of --graphs CUDA graphs of 50 launches (the backprop on the first
+path; again with every leaf depth -1, the same launch with nothing to back
+up: its floor; and with the leaf depths capped at 0, 1, 2, 4 and 8, its
+cost by depth), the fused search as the median of --graphs runs of 5
+launches between CUDA events. Prints the card's name and power limit, then
+one JSON line: ms per launch, us per level of the deepest lane (descent,
+backprop), floor_ms and depth_<c>_ms (backprop), us per simulation (fused
+search).
 
     python3 muzero_general_tpu_torch/tools/tree_kernel_cost.py [--root DIR] [--graphs 5]
 
@@ -107,6 +114,7 @@ def main():
         with torch.no_grad():
             out = mcts_ops.run_mcts(folded.initial_inference, folded.recurrent_inference, obs,
                                     legal, to_play, gen, spec, seed=seed, num_steps=sim)
+        values = torch.randn((K, B), generator=gen, device=dev) * 3  # chip_smoke's leaf values
         tree = mcts_ops._to_planar(out.tree)
         depth_bound = (out.max_tree_depth.max() + 1).to(torch.int32)
         mark = K > 1
@@ -116,8 +124,8 @@ def main():
 
         legal_i32 = legal.to(torch.int32).contiguous()  # outside the graphs: no cast in them
 
-        def dargs(visit):
-            return (seed, sim, depth_bound, tree.children_index, tree.children_prior, visit,
+        def dargs(visit, k=0):
+            return (seed, sim + k, depth_bound, tree.children_index, tree.children_prior, visit,
                     tree.children_vsum, tree.children_reward, legal_i32, tree.min_value,
                     tree.max_value)
 
@@ -137,6 +145,44 @@ def main():
         name = "descend_planar_mark" if mark else "descend_planar"
         result[name] = {"ms": ms, "per_level_us": 1e3 * ms / deepest, "deepest": deepest,
                         "samples_ms": samples}
+
+        # The backprop on this tree's next descent (K = 1), or pre-marked on
+        # the round's K marking paths, folded one after another (K = 8).
+        s_visit = tree.children_visit.clone()
+        sels = [mcts_kernels.descend_planar(*dargs(s_visit, k), **kw) for k in range(K)]
+        marked = tree._replace(children_visit=s_visit, root_visit=tree.root_visit + K * mark)
+        bkw = dict(num_players=spec.num_players, discount=spec.discount, planar=True,
+                   pre_marked=mark)
+
+        def bargs(t, k, depth=None):
+            s = sels[k]
+            return (s[3], s[4], s[2] if depth is None else depth, values[k], t.children_visit,
+                    t.children_vsum, t.children_reward, t.root_visit, t.root_vsum,
+                    t.root_reward, t.min_value, t.max_value)
+
+        outs = []
+        for fn in (mcts_kernels.backprop, mcts_kernels.backprop_plain):
+            t = mcts_ops.Tree(*(x.clone() for x in marked))
+            for k in range(K):
+                out = fn(*bargs(t, k), **bkw)
+            outs.append(out)
+        torch.cuda.synchronize()
+        for g, w in zip(*outs):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise SystemExit(f"tree_kernel_cost: backprop (K = {K}) differs from its plain "
+                                 "version")
+        w_tree = mcts_ops.Tree(*(x.clone() for x in marked))  # the same path, folded again
+        depth = sels[0][2]
+        timed = {}
+        for key, d in (("ms", depth), ("floor_ms", torch.full_like(depth, -1)),
+                       *((f"depth_{c}_ms", depth.clamp(max=c)) for c in (0, 1, 2, 4, 8))):
+            samples = [graph_ms(lambda: mcts_kernels.backprop(*bargs(w_tree, 0, d), **bkw))
+                       for _ in range(args.graphs)]
+            timed[key] = statistics.median(samples)
+            timed[key.replace("ms", "samples_ms")] = samples
+        deepest = int(depth.max())
+        name = "backprop_pre_marked" if mark else "backprop"
+        result[name] = timed | {"per_level_us": 1e3 * timed["ms"] / deepest, "deepest": deepest}
 
     # ---- the fused search: phase 3b's 4,096 roots ----------------------------
     cfg = cartpole.MuZeroConfig()

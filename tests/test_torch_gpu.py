@@ -23,6 +23,7 @@ are the stream kernels' (every descend output, every live slab row).
 from types import SimpleNamespace
 from typing import NamedTuple
 
+import numpy as np
 import pytest
 import torch
 
@@ -386,6 +387,143 @@ def test_pre_marked_backprop_kernel_matches_plain(cuda, num_players, planar):
         assert torch.equal(g, w)
     assert torch.equal(outs[0][0], marked.children_visit)
     assert torch.equal(outs[0][2], marked.root_visit)
+
+
+_BP_OUTS = ("children_visit", "children_vsum", "root_visit", "root_vsum", "min_value",
+            "max_value")
+
+
+def _chain_slabs(dev, B, A, N, D, depths, seed, planar, zeros=False, repeats=()):
+    """Random slabs and chain paths, made with numpy from `seed`: lane b's
+    path runs from the root through depths[b] - 1 more nodes, numbered in
+    increasing order as a search numbers them, taking random actions
+    (depth -1: no leaf; padding as a descent leaves it). Visit counts,
+    value sums, rewards, leaf values and root stats are random; with
+    `zeros` every one of them is a zero of random sign (visits stay
+    counts), so that each stat is exactly +0 or -0. `repeats` lists (lane,
+    entry, earlier entry): the entry takes the earlier one's edge.
+    Returns (path_n, path_a, leaf_depth, leaf_value) and the eight slab and
+    root tensors in backprop's argument order."""
+    rng = np.random.default_rng(seed)
+    pn = np.full((B, D), -1, np.int32)
+    pn[:, 0] = 0  # the root, on every lane
+    pa = np.zeros((B, D), np.int32)
+    for b, L in enumerate(depths):
+        if L > 0:
+            pn[b, :L] = np.concatenate(([0], np.sort(rng.choice(np.arange(1, N), L - 1,
+                                                               replace=False))))
+            pa[b, :L] = rng.integers(0, A, L)
+    for b, k, earlier in repeats:
+        pn[b, k], pa[b, k] = pn[b, earlier], pa[b, earlier]
+
+    def value(*shape):
+        if zeros:
+            return np.where(rng.random(shape) < 0.5, -0.0, 0.0).astype(np.float32)
+        return (rng.normal(size=shape) * 3).astype(np.float32)
+
+    visit = rng.integers(0, 40, (B, A, N)).astype(np.int32)
+    vsum, reward = value(B, A, N), value(B, A, N)
+    if not planar:
+        visit, vsum, reward = (np.ascontiguousarray(x.transpose(0, 2, 1))
+                               for x in (visit, vsum, reward))
+    lo, hi = value(B), value(B)
+    if not zeros:
+        lo, hi = np.minimum(lo, hi), np.maximum(lo, hi)
+        lo[::5], hi[::5] = np.inf, -np.inf  # a fresh tree's MinMaxStats
+    slabs = (visit, vsum, reward, rng.integers(0, 40, B).astype(np.int32), value(B), value(B),
+             lo, hi)
+    path = (pn, pa, np.asarray(depths, np.int32), value(B))
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return tuple(map(to, path)), tuple(map(to, slabs))
+
+
+def _assert_backprops_equal(paths, slabs, **kw):
+    """The kernel and the plain version fold `paths` one after another into
+    copies of `slabs`: all six outputs bit for bit (floats compared as
+    int32, so that signed zeros count). Returns the kernel's outputs."""
+    outs = []
+    for fn in (mcts_kernels.backprop, mcts_kernels.backprop_plain):
+        t = [x.clone() for x in slabs]
+        for path in paths:
+            out = fn(*path, *t, **kw)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for name, g, w in zip(_BP_OUTS, *outs):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+    return outs[0]
+
+
+def _bp_kw(num_players, planar, pre_marked):
+    return dict(num_players=num_players, discount=0.997 if num_players == 1 else 1.0,
+                planar=planar, pre_marked=pre_marked)
+
+
+_A, _N, _D = 7, 240, 201  # connect4's actions and depth bound, a tree's worth of nodes
+# Leaf depths of the chain slab's 16 lanes: in the first chunk of 32 and
+# past it (a lane at D - 1 = 200 runs seven chunks), no leaf, the root.
+_CHAIN_DEPTHS = [33, 64, 200, -1, 0, 1, 2, 12, 31, 32, 63, 65, 96, 97, 150, 5]
+
+
+@pytest.mark.parametrize("pre_marked", [False, True])
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("num_players", [1, 2])
+@pytest.mark.parametrize("case", ["chains", "repeats", "zeros"])
+def test_backprop_kernel_matches_plain_on_chain_slabs(cuda, case, num_players, planar,
+                                                      pre_marked):
+    """Chain paths 1 to 200 levels deep (chunks of 32 and their edges),
+    lanes with no leaf and at the root; paths that repeat an edge inside a
+    chunk and across chunks (each level must read what a deeper one wrote);
+    and stats that are exactly +0 or -0 (the min/max's signed zeros): the
+    kernel equals the plain version bit for bit."""
+    repeats = ()
+    if case == "repeats":
+        # lane 7 (12 levels) inside its chunk; lane 0 (33) across chunks;
+        # lane 2 (200) inside a deep chunk and across several; lane 13 (97)
+        # twice on one edge.
+        repeats = ((7, 9, 3), (0, 32, 4), (2, 150, 140), (2, 199, 20), (13, 60, 10),
+                   (13, 90, 10))
+    paths, slabs = _chain_slabs(cuda, 16, _A, _N, _D, _CHAIN_DEPTHS, 7, planar,
+                                zeros=case == "zeros", repeats=repeats)
+    out = _assert_backprops_equal([paths], slabs, **_bp_kw(num_players, planar, pre_marked))
+    if case == "zeros":
+        stats = torch.cat([out[4], out[5]])
+        assert bool((stats == 0).all()) and bool(torch.signbit(stats).any())
+        assert not bool(torch.signbit(stats).all())
+
+
+@pytest.mark.parametrize("pre_marked", [False, True])
+@pytest.mark.parametrize("B", [1, 7, 256, 1000])
+def test_backprop_kernel_matches_plain_at_lane_counts(cuda, B, pre_marked):
+    """One lane to 1,000 lanes (blocks and warps past the last lane), depths
+    from -1 to 40 and the first and second chunk's edges."""
+    rng = np.random.default_rng(B)
+    depths = rng.integers(-1, 41, B).tolist()
+    for num_players in (1, 2):
+        paths, slabs = _chain_slabs(cuda, B, _A, 64, 48, depths, B + num_players, True)
+        _assert_backprops_equal([paths], slabs, **_bp_kw(num_players, True, pre_marked))
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_pre_marked_backprop_kernel_folds_a_round_of_eight(cuda, num_players, planar):
+    """A multi-leaf round's 8 pre-marked backprops, one after another, on
+    paths that share their edges as a round's duplicate selections do (each
+    lane's 8 paths are prefixes of one chain, 1 to 40 levels): value sums,
+    root stats and min/max bit for bit, no visit added."""
+    B = 64
+    rng = np.random.default_rng(num_players)
+    full, slabs = _chain_slabs(cuda, B, _A, 64, 48, [40] * B, 3, planar)
+    paths = []
+    for k in range(8):
+        depth = torch.from_numpy(rng.integers(1, 41, B).astype(np.int32)).to(cuda)
+        keep = torch.arange(48, device=cuda)[None, :] < depth[:, None]
+        leaf = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(cuda)
+        paths.append((torch.where(keep, full[0], -1), torch.where(keep, full[1], 0), depth,
+                      leaf))
+    before = mcts_kernels.backprop.pre_marked_launches
+    out = _assert_backprops_equal(paths, slabs, **_bp_kw(num_players, planar, True))
+    assert mcts_kernels.backprop.pre_marked_launches == before + 8
+    assert torch.equal(out[0], slabs[0]) and torch.equal(out[2], slabs[3])
 
 
 @pytest.mark.parametrize("num_players", [1, 2])
@@ -921,6 +1059,53 @@ def test_update_edges_kernel_matches_plain(cuda, num_players):
     assert torch.equal(outs[0][:, :-1], outs[1][:, :-1])
     visits = outs[0][:, :-1, mcts_stream.P_VISIT] - edges[:, :-1, mcts_stream.P_VISIT]
     assert int(visits.sum()) == int(leaf_depth.sum())
+
+
+def _update_case(dev, D, B, bound, seed, holes=False):
+    """A random packed slab [B, N + 1, 8, 128] (A = 121) and [D, B] paths
+    made with numpy from `seed`: lane b is live to a random depth below D,
+    on distinct edges (its nodes in increasing order); `holes` masks every
+    lane at some levels above its leaf too. Masked levels aim at the dummy
+    row N with delta 0, as backprop_stream hands them over."""
+    rng = np.random.default_rng(seed)
+    N, A = D + 8, 121
+    edges = rng.normal(size=(B, N + 1, mcts_stream.S_PLANES, 128)).astype(np.float32)
+    edges[:, :, mcts_stream.P_VISIT] = rng.integers(0, 9, (B, N + 1, 128))
+    depth = rng.integers(0, D + 1, B)
+    mask = np.arange(D)[:, None] < depth[None, :]
+    if holes:
+        for b in range(B):
+            mask[rng.integers(0, max(depth[b], 1), 1 + D // 8), b] = False
+    nodes = np.stack([np.sort(rng.choice(N, D, replace=False)) for _ in range(B)], 1)
+    pn = np.where(mask, nodes, N).astype(np.int32)
+    pa = np.where(mask, rng.integers(0, A, (D, B)), 0).astype(np.int32)
+    delta = (rng.normal(size=(D, B)) * mask).astype(np.float32)
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (to(edges), to(pn), to(pa), to(delta), to(mask.astype(np.float32)),
+            torch.tensor(bound, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("D, B, bound, holes", [
+    (401, 64, 0, False),  # bound 0: nothing to update
+    (401, 64, 401, False),  # bound = D: every level below it
+    (37, 7, 20, False),  # D x B = 259: not a multiple of the block
+    (401, 64, 300, True),  # every lane masked at some levels above its leaf
+], ids=["bound-0", "bound-D", "ragged", "holes"])
+def test_update_edges_kernel_matches_plain_on_random_paths(cuda, D, B, bound, holes):
+    """The whole slab, dummy row included, bit for bit after one update
+    (floats compared as int32); each live level adds one visit."""
+    edges, pn, pa, delta, mask, top = _update_case(cuda, D, B, bound, D + B, holes)
+    before = mcts_stream.update_edges.launches
+    got = mcts_stream.update_edges(edges.clone(), pn, pa, delta, mask, top)
+    want = mcts_stream.update_edges_plain(edges.clone(), pn, pa, delta, mask, top)
+    torch.cuda.synchronize()
+    assert mcts_stream.update_edges.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    live = int((mask[:bound] != 0).sum())
+    added = got[:, :, mcts_stream.P_VISIT] - edges[:, :, mcts_stream.P_VISIT]
+    assert int(added.sum()) == live and (live > 0) == (bound > 0)
+    if holes:
+        assert bool((mask[:bound] == 0).any(0).all())
 
 
 def test_stream_kernels_reject_bad_inputs(cuda):

@@ -27,6 +27,12 @@ from test_torch_mcts import _inputs, _specs, _tables, jax_table_net
 
 B, A, SIMS = 8, 5, 25
 RTOL = 1e-6  # see the module docstring
+# One-player value sums and stats on the chain paths below: the FMA's
+# rounding gap enters the value chain in the leaf value's units and is
+# carried down the path, so a small value sum differs by ulps of the
+# values, not of itself (measured: at most 9.5e-7, one ulp at the slab's
+# largest magnitude, 14.4; 3.6e-6 relative on a sum of 0.13).
+CHAIN_ATOL = 4e-6
 SLABS = ("children_index", "children_prior", "children_visit", "children_vsum",
          "children_reward")
 
@@ -144,6 +150,76 @@ def test_backprop_plain_matches_pallas_interpret(num_players, planar):
     assert got[0] is t[0] and got[1] is t[1]
     lanes = leaf_depth >= 0
     assert torch.equal(t[3] - torch.from_numpy(src["root_visit"]), lanes.to(torch.int32))
+
+
+def _chain_case(case, planar, seed):
+    """Four lanes of random slabs [B, A, N] (or node-major) and chain paths
+    made with numpy: lane 0 a 40-level chain (nodes numbered in increasing
+    order, as a search numbers them), lane 1 the root only, lane 2 no leaf,
+    lane 3 a 9-level chain. "repeat": lane 0's path takes one edge at
+    levels 6, 21 and 37 and lane 3's at levels 2 and 8, so each of those
+    levels reads what a deeper one wrote."""
+    rng = np.random.default_rng(seed)
+    Bc, Ac, Nc, Dc = 4, 3, 48, 48
+    depths = np.array([40, 0, -1, 9], np.int32)
+    pn = np.full((Bc, Dc), -1, np.int32)
+    pn[:, 0] = 0
+    pa = np.zeros((Bc, Dc), np.int32)
+    for b, L in enumerate(depths):
+        if L > 0:
+            pn[b, :L] = np.concatenate(([0], np.sort(rng.choice(np.arange(1, Nc), L - 1,
+                                                               replace=False))))
+            pa[b, :L] = rng.integers(0, Ac, L)
+    if case == "repeat":
+        for b, k, earlier in ((0, 20, 5), (0, 36, 5), (3, 7, 1)):
+            pn[b, k], pa[b, k] = pn[b, earlier], pa[b, earlier]
+    slabs = [rng.integers(0, 40, (Bc, Ac, Nc)).astype(np.int32),
+             (rng.normal(size=(Bc, Ac, Nc)) * 5).astype(np.float32),
+             rng.normal(size=(Bc, Ac, Nc)).astype(np.float32)]
+    if not planar:
+        slabs = [np.ascontiguousarray(x.transpose(0, 2, 1)) for x in slabs]
+    lo = rng.normal(size=Bc).astype(np.float32) - 2
+    lo[1] = np.inf  # a fresh tree's MinMaxStats
+    hi = -lo
+    ins = slabs + [rng.integers(0, 40, Bc).astype(np.int32),
+                   (rng.normal(size=Bc) * 5).astype(np.float32),
+                   rng.normal(size=Bc).astype(np.float32), lo, hi]
+    leaf_value = (rng.normal(size=Bc) * 3).astype(np.float32)
+    return (pn, pa, depths, leaf_value), ins
+
+
+@pytest.mark.parametrize("case", ["chain", "repeat"])
+@pytest.mark.parametrize("pre_marked", [False, True])
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("num_players", [1, 2])
+def test_backprop_plain_matches_pallas_interpret_on_chains(num_players, planar, pre_marked,
+                                                           case):
+    """backprop_plain against the JAX kernel on a 40-level chain path (the
+    CUDA kernel's second chunk) and on paths that repeat an edge, in both
+    layouts and both modes: the serial walk's semantics, which the kernel
+    keeps. Exact with two players; with one, to RTOL and CHAIN_ATOL."""
+    path, ins = _chain_case(case, planar, seed=60 + num_players)
+    discount = 0.997 if num_players == 1 else 1.0
+    kw = dict(num_players=num_players, discount=discount, planar=planar,
+              pre_marked=pre_marked)
+    # Copies: JAX on the CPU may alias a NumPy buffer that the plain
+    # version then writes in place.
+    want = mcts_pallas.backprop(*(jnp.asarray(x.copy()) for x in (*path, *ins)),
+                                interpret=True, **kw)
+    t = [torch.from_numpy(x.copy()) for x in ins]
+    got = mcts_kernels.backprop_plain(*(torch.from_numpy(x) for x in path), *t, **kw)
+    names = ("children_visit", "children_vsum", "root_visit", "root_vsum", "min_value",
+             "max_value")
+    for name, g, w in zip(names, got, want):
+        if "visit" in name or num_players == 2:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=CHAIN_ATOL,
+                                       err_msg=name)
+    added = got[0].numpy().astype(np.int64) - ins[0]
+    assert added.sum() == (0 if pre_marked else int(path[2].clip(min=0).sum()))
+    if case == "repeat" and not pre_marked:
+        assert added.max() == 3  # lane 0's edge, taken at three levels
 
 
 def test_routing_predicates_are_the_jax_packages():
