@@ -8,7 +8,8 @@ In order, it:
 2. builds every kernel (csrc/mcts_fused.cu, csrc/mcts_kernels.cu,
    csrc/mcts_stream.cu, csrc/hidden_store.cu, csrc/conv_probe.cu and
    csrc/stream_probe.cu) from the checkout, one nvcc each, started together,
-   and prints the build times and ptxas' register/shared-memory report;
+   and prints the build times and ptxas' register/shared-memory report; then
+   the replay batch assembler (native/replay_sampler.cpp) with g++;
 3. the cartpole path (FC net, the fused-search kernel):
    a. holds the kernel against its plain PyTorch version (search_plain), tie
       jitter 0, in three cases: cartpole with the pretrained weights and
@@ -22,6 +23,12 @@ In order, it:
       search_plain as in (a) and times both, with the kernel's time per
       simulation and its share of the bound;
    c. plays 64 greedy lanes for 500 moves: mean return >= 100;
+   d. replay: saves the games of (c) into the port's ReplayBuffer under the
+      cartpole config; assembles a batch on the C++ assembler and on the
+      numpy path from the same rng state (bit-equal, finite); checks the PER
+      weights in (0, 1] with a max of 1; writes priorities back; times
+      get_batch and one BatchPrefetcher.take(8) on the host and moves a
+      batch onto the card;
 4. the connect4 path (3 x 64 ResNet, the staged search with the planar
    descent and backprop kernels):
    a. each kernel against its plain version (descend_planar_plain,
@@ -35,7 +42,8 @@ In order, it:
       warm-up, the move loop inside them apart from the host's episode
       cuts; checks that each kernel was launched 200 times per move; times
       the network's and the kernels' device work by CUDA graph replay and
-      profiles one move for the card's busy share;
+      profiles one move for the card's busy share; then replay as in 3d on
+      the two-player games the chunks completed, under the connect4 config;
    c. at the 256 mid-game roots the driver reached, runs the whole search
       on the kernel route and on the kernels' plain versions, same root
       noise and jitter seed, cuDNN deterministic: visits and depth must be
@@ -94,10 +102,12 @@ In order, it:
    which holds each kernel against the library conv (< 2e-2) and times 50
    chained applications of each engine in one CUDA graph;
 10. the stream probe (kernel 10, the counterpart of tools/stream_probe.py)
-   at [64, 512, 8, 128]: the kernel against its plain version for 64 and
-   128 levels (1e-5 relative), then the probe's entry point (the float64
-   reference at rtol 1e-4, the time per level), beside the stream descent's
-   time per level from 8a;
+   at [64, 512, 8, 128]: the kernel against its plain version for 0, 64 and
+   128 levels (1e-5 relative); its device time at each (CUDA graphs; L = 0
+   is floor_ms) and one call with the L2 warm and cold (after a 256 MB
+   write); then the probe's entry point (the float64 reference at rtol
+   1e-4, the time per level), beside the stream descent's time per level
+   from 8a;
 11. the board-game lanes at the JAX bench's compute dtype, bfloat16:
    connect4 K = 1 (pretrained, 256 lanes x 200 sims, the 64-game gate
    against the expert), connect4 K = 8 with bf16 search activations (the
@@ -147,6 +157,11 @@ BACKPROP_DESIGN = ("one warp per lane, a thread per path entry; round trip 1 the
                    "a level), each level's division and stat on its owner, min/max by redux "
                    "over order-preserving keys; chunks of 32 from the leaf end, a chunk that "
                    "repeats an edge (__match_any_sync) walked serially")
+CHASE_DESIGN = ("a lane a block of two warps: the chaser thread loads only each row's pointer "
+                "word (a relaxed gpu-scope load) and issues a bulk asynchronous copy "
+                "(cp.async.bulk) of the row into a ring of up to 8 shared-memory stages with "
+                "full and empty mbarriers; the consumer warp sums each stage as it lands, eight "
+                "16-byte words a lane at once, into per-lane shares added once at the end")
 UPDATE_DESIGN = ("a thread per (level, lane) slot; the bound and the slot's mask, node, action "
                  "and delta issued together (round trip 1), then a live slot's visit and value "
                  "sum (round trip 2) and the two stores")
@@ -193,12 +208,13 @@ def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def timed_play(driver, reps):
+def timed_play(driver, reps, games=None):
     """One warm-up driver.play chunk, then `reps` timed ones. The move loop
     (play_chunk) is timed inside the same calls, so the split between it and
     the host's episode cuts sees no drift. Returns (seconds per chunk, ms
     per move of the move loop, the last chunk's stats, every chunk's
-    MoveRecord, the warm-up's included)."""
+    MoveRecord, the warm-up's included); the games the chunks completed
+    are added to `games` where it is a list."""
     chunk_times, records = [], []
     play_chunk = driver.play_chunk
 
@@ -213,16 +229,19 @@ def timed_play(driver, reps):
 
     driver.play_chunk = timed_play_chunk
     try:
-        driver.play(temperature=1.0)  # warm-up
+        completed, _ = driver.play(temperature=1.0)  # warm-up
         chunk_times.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            _, stats = driver.play(temperature=1.0)
+            done, stats = driver.play(temperature=1.0)
+            completed += done
         torch.cuda.synchronize()
         chunk_s = (time.perf_counter() - t0) / reps
     finally:
         del driver.play_chunk
+    if games is not None:
+        games += completed
     loop_ms = sum(chunk_times) * 1e3 / (reps * driver.config.selfplay_chunk_moves)
     return chunk_s, loop_ms, stats, records
 
@@ -266,6 +285,12 @@ def build_kernels():
             if "ptxas" in line or "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
         build.load_library(name)
+    t0 = time.perf_counter()
+    info = build.build_replay_native()
+    build.load_replay_native()
+    log(f"[build] muzero_general_tpu_torch/native/replay_sampler.cpp (g++) -> "
+        f"{info['path'].name} in {info['seconds']:.2f} s ({time.perf_counter() - t0:.2f} s "
+        f"with the import)")
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +483,9 @@ def cartpole_path():
         f"mean return {mean_return:.2f} (min {min(returns):.0f}, max {max(returns):.0f})")
     if mean_return < 100:
         fail(f"cartpole greedy check: mean return {mean_return:.2f} < 100")
+
+    # ---- 3d. replay ------------------------------------------------------
+    replay_phase("cartpole replay", MuZeroConfig(), completed)
     return {
         "name": "mcts_fused_search",
         "route": "cuda",
@@ -478,6 +506,99 @@ def cartpole_path():
         "bound_by": b_by,
         "library_ms": None,  # no single PyTorch call runs an MCTS
     }
+
+
+# ---------------------------------------------------------------------------
+# Replay: the PER buffer and the C++ batch assembler on the driver's games
+# ---------------------------------------------------------------------------
+
+
+def replay_phase(label, cfg, games, seed=0):
+    """Phases 3d and 4b': the games the port's self-play driver completed,
+    saved into the port's ReplayBuffer under the game's config; a batch
+    assembled on the C++ assembler and on the numpy path from the same rng
+    state (bit-equal, finite); the PER weights in (0, 1] with a max of 1;
+    priorities written back; get_batch and one BatchPrefetcher.take(8) timed
+    on the host, and a batch moved onto the card."""
+    import numpy as np
+
+    from muzero_general_tpu_torch.prefetch import BatchPrefetcher
+    from muzero_general_tpu_torch.replay import ReplayBuffer
+
+    if not games:
+        fail(f"{label}: the driver completed no game")
+    buf = ReplayBuffer(cfg)
+    t0 = time.perf_counter()
+    for gh in games:
+        buf.save_game(gh)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    players = sorted({int(p) for gh in games for p in np.unique(gh.to_play[:-1])})
+
+    batches = []
+    for use_native in (True, False):
+        buf.rng = np.random.default_rng(seed)
+        batches.append(buf.get_batch(use_native=use_native))
+    (index_batch, batch), (want_index, want) = batches
+    if not np.array_equal(index_batch, want_index):
+        fail(f"{label}: the native and numpy paths sampled different positions")
+    for key, value in want.items():
+        got = batch[key]
+        if (got.dtype != value.dtype or got.shape != value.shape
+                or not np.array_equal(got.view(np.uint8), value.view(np.uint8))):
+            fail(f"{label}: the native and numpy batches differ in {key}")
+        if got.dtype.kind == "f" and not np.isfinite(got).all():
+            fail(f"{label}: {key} is not finite")
+    weight = batch["weight"]  # both games' configs sample with PER
+    if not ((weight > 0).all() and (weight <= 1).all() and weight.max() == 1):
+        fail(f"{label}: PER weights outside (0, 1] or without a max of 1: {weight}")
+
+    # Priorities written back, as the learner will: one per unroll step.
+    prio = np.random.default_rng(seed).uniform(0.01, 1.0, batch["target_value"].shape)
+    prio = prio.astype(np.float32)
+    buf.update_priorities(prio, index_batch)
+    last = {int(gid): i for i, gid in enumerate(index_batch[:, 0])}
+    for gid, i in last.items():
+        gh, pos = buf.buffer[gid], int(index_batch[i, 1])
+        end = min(pos + prio.shape[1], len(gh))
+        if (not np.array_equal(gh.priorities[pos:end], prio[i, : end - pos])
+                or gh.game_priority != float(gh.priorities.max())):
+            fail(f"{label}: priorities of game {gid} not written back")
+
+    def host_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    native_ms = host_ms(lambda: buf.get_batch(), 20)
+    numpy_ms = host_ms(lambda: buf.get_batch(use_native=False), 5)
+    prefetcher = BatchPrefetcher(buf, depth=8)
+    try:
+        t = time.perf_counter()
+        taken = prefetcher.take(8)
+        take_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        prefetcher.stop()
+    if len(taken) != 8 or prefetcher._thread.is_alive():
+        fail(f"{label}: the prefetcher did not hand over 8 batches and stop")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    on_card = {key: torch.from_numpy(value).to("cuda") for key, value in taken[-1][1].items()}
+    torch.cuda.synchronize()
+    to_card_ms = (time.perf_counter() - t) * 1e3
+    if not all(bool(torch.isfinite(v).all()) for v in on_card.values() if v.is_floating_point()):
+        fail(f"{label}: a batch on the card holds non-finite values")
+    nbytes = sum(v.numel() * v.element_size() for v in on_card.values())
+    log(f"[{label}] {len(games)} games ({buf.total_samples} positions, players {players}) saved "
+        f"in {save_ms:.2f} ms; batch {cfg.batch_size} x {cfg.num_unroll_steps + 1} steps, "
+        f"observation {tuple(batch['observation'].shape[1:])}: native and numpy batches "
+        f"bit-equal, PER weights in [{weight.min():.4g}, 1]; priorities of {len(last)} games "
+        f"written back")
+    log(f"[{label}] host ms: get_batch {native_ms:.3f} (C++ assembler, median of 20), numpy "
+        f"path {numpy_ms:.3f} (median of 5), BatchPrefetcher.take(8) {take_ms:.3f} from a "
+        f"cold start; one batch onto the card {to_card_ms:.3f} ({nbytes / 1e6:.3f} MB)")
 
 
 # ---------------------------------------------------------------------------
@@ -808,7 +929,8 @@ def connect4_path():
     K, reps, S = cfg.selfplay_chunk_moves, 3, cfg.num_simulations
     mcts_kernels.descend_planar.launches = 0
     mcts_kernels.backprop.launches = 0
-    chunk_s, loop_ms, stats, _ = timed_play(driver, reps)
+    games = []
+    chunk_s, loop_ms, stats, _ = timed_play(driver, reps, games)
     launches = {"descend_planar": mcts_kernels.descend_planar.launches,
                 "backprop": mcts_kernels.backprop.launches}
     moves = (reps + 1) * K
@@ -836,6 +958,7 @@ def connect4_path():
         f"{kernels['backprop']['ms']:.4f})); the other {loop_ms - dev_net - dev_kern:.3f} ms "
         f"is host time the card waits on and small ops")
     profile_move(driver, loop_ms)
+    replay_phase("connect4 replay", MuZeroConfig(), games)
 
     # ---- 4c, 4d ----------------------------------------------------------
     end_state = (*whole_search_check(driver, folded), driver.spec)
@@ -1666,63 +1789,82 @@ def conv_probe_phase():
 
 def stream_probe_phase(descend_per_level_us):
     """Phase 10, kernel 10, at the probe's [64, 512, 8, 128] (gomoku's packed
-    slab is [64, 402, 8, 128]): the kernel against its plain version for 64
-    and 128 levels (within 1e-5 relative: the same chain, float32 sums in
-    another order); then the probe's entry point, which holds the kernel
-    against the float64 numpy reference (rtol 1e-4) and times it. Returns
-    the kernel's entry of the kernels line."""
+    slab is [64, 402, 8, 128]): the kernel against its plain version for 0,
+    64 and 128 levels (within 1e-5 relative: the same chain, float32 sums in
+    another order); its device time (CUDA graph replay) at L = 0 (floor_ms),
+    64 and 128, and one call at L = 64 after a 256 MB write to another
+    buffer (cold L2), beside the same call warm; then the probe's entry
+    point, which holds the kernel against the float64 numpy reference (rtol
+    1e-4) and times it. Returns the kernel's entry of the kernels line."""
     from muzero_general_tpu_torch.tools import stream_probe
 
     dev = torch.device("cuda")
     B, N, S, A, L = 64, 512, 8, 128, 64
     slab = torch.from_numpy(stream_probe.probe_slab(B, N, S, A)).to(dev)
+    levels = {lv: torch.tensor([lv], dtype=torch.int32, device=dev) for lv in (0, L, 2 * L)}
     errs = []
-    for lv in (L, 2 * L):
-        levels = torch.tensor([lv], dtype=torch.int32, device=dev)
-        got = stream_probe.pointer_chase(levels, slab)
-        want = stream_probe.pointer_chase_plain(levels, slab)
+    for lv in (0, L, 2 * L):
+        got = stream_probe.pointer_chase(levels[lv], slab)
+        want = stream_probe.pointer_chase_plain(levels[lv], slab)
         torch.cuda.synchronize()
-        rel = float(((got - want).abs() / want.abs()).max())
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
         if not rel <= 1e-5:
             fail(f"pointer_chase at L={lv}: kernel and plain version differ by {rel!r} relative")
         errs.append(float((got - want).abs().max()))
-    levels = torch.tensor([L], dtype=torch.int32, device=dev)
-    call = cuda_ms(lambda: stream_probe.pointer_chase(levels, slab), 20)
-    plain_ms = cuda_ms(lambda: stream_probe.pointer_chase_plain(levels, slab), 1)
-    log(f"[stream probe] pointer_chase vs plain at [{B}, {N}, {S}, {A}], L = {L} and {2 * L}: "
-        f"max |d| {max(errs)!r} (<= 1e-5 relative); {call:.4f} ms per call at L = {L}, plain "
-        f"{plain_ms:.3f} ms")
+    times = {lv: stream_probe.chase_times(levels[lv], slab) for lv in (0, L, 2 * L)}
+    plain_ms = cuda_ms(lambda: stream_probe.pointer_chase_plain(levels[L], slab), 1)
+    warm_ms = stream_probe.one_call_ms(levels[L], slab, cold=False)
+    cold_ms = stream_probe.one_call_ms(levels[L], slab, cold=True)
+    ms = times[L]["us"] / 1e3
+    floor_ms = times[0]["us"] / 1e3
+    per_level = {lv: times[lv]["us"] / lv for lv in (L, 2 * L)}
+    log(f"[stream probe] pointer_chase vs plain at [{B}, {N}, {S}, {A}], L = 0, {L} and {2 * L}: "
+        f"max |d| {max(errs)!r} (<= 1e-5 relative); plain {plain_ms:.3f} ms at L = {L}")
+    log(f"[stream probe] device ms (CUDA graphs of 20 calls, median of 5): L = 0 {floor_ms:.5f}, "
+        f"L = {L} {ms:.5f} ({per_level[L]:.4f} us a level), L = {2 * L} "
+        f"{times[2 * L]['us'] / 1e3:.5f} ({per_level[2 * L]:.4f} us a level; "
+        f"{100 * (per_level[2 * L] / per_level[L] - 1):+.1f}%); a call from Python "
+        f"{times[L]['call_us'] / 1e3:.5f} ms at L = {L} (CUDA events over 20 calls: the "
+        f"wrapper's host cost where it exceeds the kernel's)")
+    log(f"[stream probe] one call at L = {L}: warm {warm_ms:.5f} ms, cold L2 (after a 256 MB "
+        f"write) {cold_ms:.5f} ms ({1e3 * cold_ms / L:.4f} us a level)")
 
     stream_probe.pointer_chase.launches = 0
     log(f"[stream probe] python -m muzero_general_tpu_torch.tools.stream_probe --B {B} --N {N} "
         f"--S {S} --A {A} --levels {L}:")
-    res = stream_probe.main(["--B", str(B), "--N", str(N), "--S", str(S), "--A", str(A),
-                             "--levels", str(L)])
+    stream_probe.main(["--B", str(B), "--N", str(N), "--S", str(S), "--A", str(A),
+                       "--levels", str(L)])
     launches = stream_probe.pointer_chase.launches
     if not launches:
         fail("stream probe: the kernel was not launched on the probe's path")
     # B x L rows of S x A floats read (the data's chain), the level count
     # read and the accumulators written; one add per float read.
     bnd, by = bound_ms(B * L * S * A, B * L * S * A * 4 + 4 + B * 4)
-    ms = res[L]["us"] / 1e3
     log(f"[stream probe] bound {bnd * 1e3:.3f} us ({by}: {B * L * S * A * 4 / 1e6:.2f} MB) at L = "
-        f"{L}: the kernel at {100 * bnd / ms:.1f}% of it; {res[L]['per_level_us']:.3f} us per "
-        f"level, {res[2 * L]['per_level_us']:.3f} at L = {2 * L}")
+        f"{L}: the kernel at {100 * bnd / ms:.1f}% of it (a chained fetch cannot reach half of "
+        f"it; tools/stream_probe_cost.py times the latency floor)")
     log(f"[stream probe] per level: descend_stream {descend_per_level_us:.3f} us (phase 8a, "
-        f"its deepest lane) against the bare row fetch's {res[L]['per_level_us']:.3f} us: "
-        f"{descend_per_level_us / res[L]['per_level_us']:.2f}x")
+        f"its deepest lane) against the row fetch's {per_level[L]:.4f} us: "
+        f"{descend_per_level_us / per_level[L]:.2f}x")
     return {
         "name": "pointer_chase",
         "route": "cuda",
         "source": CSRC + "stream_probe.cu",
         "replaces": "muzero_general_tpu/tools/stream_probe.py:27",
-        "launches": launches,  # the probe's run: one check and 20 timed calls per L
+        "design": CHASE_DESIGN,
+        # kernels run in the probe's run: its checks and calls from Python,
+        # and each CUDA-graph replay's calls (counted as they replay)
+        "launches": launches,
         "max_abs_err": max(errs),
-        "ms": ms,  # one call at L = 64, CUDA events over 20 calls
-        "call_ms": call,
-        "per_level_us": res[L]["per_level_us"],
-        "per_lane_row_ns": res[L]["per_lane_row_ns"],
-        "ms_at_2L": res[2 * L]["us"] / 1e3,
+        "ms": ms,  # device time of one call at L = 64 (CUDA graph replay)
+        "call_ms": times[L]["call_us"] / 1e3,
+        "floor_ms": floor_ms,
+        "per_level_us": per_level[L],
+        "per_level_us_at_2L": per_level[2 * L],
+        "per_lane_row_ns": 1e3 * per_level[L] / B,
+        "ms_at_2L": times[2 * L]["us"] / 1e3,
+        "one_call_warm_ms": warm_ms,
+        "cold_l2_ms": cold_ms,
         "plain_ms": plain_ms,
         "bound_ms": bnd,
         "bound_by": by,

@@ -8,5 +8,6 @@ AVAILABLE_GAMES = [
     "cartpole",
     "connect4",
     "gomoku",
+    "simple_grid",
     "tictactoe",
 ]

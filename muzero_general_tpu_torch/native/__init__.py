@@ -1,1 +1,2 @@
-"""Native code: the nvcc build and ctypes loading of csrc/*.cu (build.py)."""
+"""Native code: the nvcc build and ctypes loading of csrc/*.cu, and the g++
+build of the replay batch assembler (replay_sampler.cpp), in build.py."""

@@ -1,19 +1,25 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled at first use
 with nvcc into a shared library under `muzero_general_tpu_torch/_build/`
-(listed in .gitignore), then loaded with ctypes. The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
-Nothing is compiled when a module is imported.
+(listed in .gitignore), then loaded with ctypes. The replay buffer's batch
+assembler (`native/replay_sampler.cpp`, a CPython/numpy extension) is
+compiled at first use with the host's g++ into the same directory and
+imported. Each built file's name carries a hash of its source and flags, so
+an edited source is rebuilt. Nothing is compiled when a module is imported,
+and a build that fails raises.
 """
 
 import concurrent.futures
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
 import time
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
@@ -120,10 +126,15 @@ _KERNELS = {
         },
     },
     "stream_probe": {
-        # The stream probe's pointer chase: sums only, held to a tolerance.
+        # The stream probe's pointer chase (sums only, held to a tolerance)
+        # and its latency floor (row indices, exact; launched only by
+        # tools/stream_probe_cost.py).
         "flags": [],
         "api": {
             "stream_probe_chase": (
+                ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            ),
+            "stream_probe_floor": (
                 ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
             ),
             "stream_probe_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -205,3 +216,59 @@ def load_library(name: str) -> ctypes.CDLL:
         _loaded[name] = lib
     return lib
 
+
+
+# ---- the replay buffer's batch assembler (g++, a CPython extension) ------
+
+REPLAY_SRC = PACKAGE_DIR / "native" / "replay_sampler.cpp"
+# No FMA contraction: every product is rounded where numpy rounds it, so
+# the assembler's targets equal the numpy path's bit for bit.
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
+
+
+def _gxx_command(out):
+    import numpy as np
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the replay batch assembler needs a host C++ compiler")
+    return [gxx, *GXX_FLAGS, f"-I{sysconfig.get_paths()['include']}", f"-I{np.get_include()}",
+            str(REPLAY_SRC), "-o", str(out)]
+
+
+def replay_native_path() -> pathlib.Path:
+    suffix = importlib.machinery.EXTENSION_SUFFIXES[0]
+    key = REPLAY_SRC.read_bytes() + " ".join(_gxx_command("")).encode()
+    return BUILD_DIR / f"_replay_native-{hashlib.sha256(key).hexdigest()[:16]}{suffix}"
+
+
+def build_replay_native() -> dict:
+    """Compile the batch assembler unless it is already built. Returns
+    {"path", "seconds" (0 when cached), "log"}; raises if g++ fails."""
+    out = replay_native_path()
+    if out.exists():
+        return {"path": out, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(_gxx_command(tmp), capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {REPLAY_SRC.name}:\n{log}")
+    os.replace(tmp, out)
+    return {"path": out, "seconds": seconds, "log": log}
+
+
+def load_replay_native():
+    """Build if needed and import the batch assembler's module (once a
+    process for each source file)."""
+    module = _loaded.get(REPLAY_SRC)
+    if module is None:
+        path = build_replay_native()["path"]
+        spec = importlib.util.spec_from_file_location("_replay_native", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _loaded[REPLAY_SRC] = module
+    return module

@@ -16,8 +16,8 @@ Usage:
 
 It builds the probe's slab and pointer plane (next row = (n * 7 + b) % N),
 checks the chase against a float64 numpy reference at rtol 1e-4 for L and
-2L levels, and on the card prints the time per call, per level and per
-lane-row (CUDA events over 20 calls).
+2L levels, and on the card prints the device time per call (CUDA graphs of
+20 calls), per level and per lane-row, and the time of a call from Python.
 """
 
 import argparse
@@ -98,9 +98,71 @@ def reference(slab, L):
     return acc
 
 
+def _graph_of(levels, slab, calls):
+    """A CUDA graph of `calls` chases and its replay, which counts the
+    `calls` launches each replay runs (capture only records them)."""
+    graph = torch.cuda.CUDAGraph()
+    recorded = pointer_chase.launches
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            pointer_chase(levels, slab)
+    pointer_chase.launches = recorded
+
+    def replay():
+        graph.replay()
+        pointer_chase.launches += calls
+
+    return replay
+
+
+def _events_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def chase_times(levels, slab, reps=20, graphs=5):
+    """The chase's time on the card, in us: "us" the device time of one call
+    (the median of `graphs` replays of a CUDA graph of `reps` calls, so the
+    wrapper's host cost is out of the way), "call_us" one call from Python
+    (CUDA events over `reps` calls back to back: the larger of the device
+    time and the wrapper's host cost)."""
+    def calls():
+        for _ in range(reps):
+            pointer_chase(levels, slab)
+
+    torch.cuda.synchronize()
+    call_ms = _events_ms(calls) / reps
+    replay = _graph_of(levels, slab, reps)
+    replay()
+    torch.cuda.synchronize()
+    device_ms = sorted(_events_ms(replay) / reps for _ in range(graphs))[graphs // 2]
+    return {"us": device_ms * 1e3, "call_us": call_ms * 1e3}
+
+
+def one_call_ms(levels, slab, cold, reps=5):
+    """One chase (a CUDA graph of one launch) between CUDA events, the median
+    of `reps`: each after a warm-up call, or, when `cold`, after a 256 MB
+    write to another buffer, which evicts the slab from the L2."""
+    replay = _graph_of(levels, slab, 1)
+    flush = torch.empty((64 << 20,), dtype=torch.float32, device=slab.device)
+    out = []
+    for i in range(reps):
+        if cold:
+            flush.fill_(float(i))
+        else:
+            replay()
+        out.append(_events_ms(replay))
+    return sorted(out)[reps // 2]
+
+
 def main(argv=None):
     """The probe's entry point; returns {L: {"correct", "max_rel_err", and on
-    the card "us", "per_level_us", "per_lane_row_ns"}}."""
+    the card "us", "call_us", "per_level_us", "per_lane_row_ns"}}."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--B", type=int, default=64)
     ap.add_argument("--N", type=int, default=512)
@@ -122,20 +184,12 @@ def main(argv=None):
         result = {"correct": ok, "max_rel_err": float(np.max(np.abs(out - ref) / np.abs(ref)))}
         line = f"L={L}: correct={ok} (max rel err {result['max_rel_err']:.2e})"
         if device.type == "cuda":
-            reps = 20
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                pointer_chase(levels, slab)
-            end.record()
-            torch.cuda.synchronize()
-            dt = start.elapsed_time(end) / 1e3 / reps
-            result.update(us=dt * 1e6, per_level_us=dt / L * 1e6,
-                          per_lane_row_ns=dt / L / B * 1e9)
-            line += (f" time={result['us']:.1f} us per-level={result['per_level_us']:.3f} us "
-                     f"per-lane-row={result['per_lane_row_ns']:.1f} ns")
+            result.update(chase_times(levels, slab))
+            dt = result["us"] / 1e6
+            result.update(per_level_us=dt / L * 1e6, per_lane_row_ns=dt / L / B * 1e9)
+            line += (f" time={result['us']:.2f} us (device; {result['call_us']:.2f} us a call "
+                     f"from Python) per-level={result['per_level_us']:.4f} us "
+                     f"per-lane-row={result['per_lane_row_ns']:.2f} ns")
         print(line)
         if not ok:
             raise SystemExit(f"stream_probe: the chase disagrees with the reference at L={L}")

@@ -1216,6 +1216,83 @@ def test_pointer_chase_kernel_matches_plain(cuda, levels):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
 
+# Rows of 4 floats, of 1,024 and of 5,120 (20 KB: wider than a 16 KB ring
+# stage, so each row goes as two bulk copies).
+@pytest.mark.parametrize("row", [(1, 4), (8, 128), (4, 1280)], ids=["4", "1024", "5120"])
+@pytest.mark.parametrize("levels", [0, 1, 64])
+@pytest.mark.parametrize("B", [1, 7, 64, 200])  # 200 lanes: more than the card's SMs
+def test_pointer_chase_kernel_matches_plain_at_shapes(cuda, B, levels, row):
+    from muzero_general_tpu_torch.tools import stream_probe
+
+    S, A = row
+    slab = torch.from_numpy(stream_probe.probe_slab(B, 48, S, A, seed=B)).to(cuda)
+    lv = torch.tensor([levels], dtype=torch.int32, device=cuda)
+    got = stream_probe.pointer_chase(lv, slab)
+    want = stream_probe.pointer_chase_plain(lv, slab)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("B", [7, 200])
+def test_pointer_chase_kernel_clamps_pointers_as_plain(cuda, B):
+    """Pointers below 0 and at or past N (up to 1e6) clamp to the end rows."""
+    from muzero_general_tpu_torch.tools import stream_probe
+
+    N = 32
+    slab_np = stream_probe.probe_slab(B, N, 8, 128, seed=1)
+    rng = np.random.default_rng(2)
+    slab_np[:, :, 0, 0] = rng.integers(-3 * N, 3 * N, (B, N))
+    slab_np[:, ::5, 0, 0] = 1e6
+    slab = torch.from_numpy(slab_np).to(cuda)
+    lv = torch.tensor([64], dtype=torch.int32, device=cuda)
+    got = stream_probe.pointer_chase(lv, slab)
+    want = stream_probe.pointer_chase_plain(lv, slab)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_pointer_chase_counts_the_launches_its_timing_runs(cuda):
+    """chase_times and one_call_ms count the kernels each CUDA-graph replay
+    runs, not the launches its capture records."""
+    from muzero_general_tpu_torch.tools import stream_probe
+
+    slab = torch.from_numpy(stream_probe.probe_slab(8, 16, 8, 128)).to(cuda)
+    lv = torch.tensor([4], dtype=torch.int32, device=cuda)
+    before = stream_probe.pointer_chase.launches
+    stream_probe.chase_times(lv, slab, reps=3, graphs=5)
+    # 3 calls from Python, then 1 + 5 replays of a graph of 3 calls
+    assert stream_probe.pointer_chase.launches - before == 3 + 6 * 3
+    before = stream_probe.pointer_chase.launches
+    stream_probe.one_call_ms(lv, slab, cold=False, reps=3)  # a warm-up and a timed replay each
+    assert stream_probe.pointer_chase.launches - before == 6
+    before = stream_probe.pointer_chase.launches
+    stream_probe.one_call_ms(lv, slab, cold=True, reps=3)
+    assert stream_probe.pointer_chase.launches - before == 3
+
+
+def test_stream_probe_library_declares_the_c_interface_of_its_source(cuda):
+    """The built library's ctypes declarations against the `extern "C"`
+    signatures of csrc/stream_probe.cu, and a refused launch reported."""
+    import ctypes
+    import re
+
+    from muzero_general_tpu_torch.native import build
+
+    source = (build.CSRC_DIR / "stream_probe.cu").read_text()
+    defined = {fn: len(params.split(",")) for fn, params in
+               re.findall(r'extern "C" [\w ]+\*? (\w+)\(([^)]*)\)', source)}
+    lib = build.load_library("stream_probe")
+    declared = {fn: len(getattr(lib, fn).argtypes) for fn in build._KERNELS["stream_probe"]["api"]}
+    assert defined == declared
+    assert lib.stream_probe_chase.restype is ctypes.c_int
+    assert lib.stream_probe_chase.argtypes[:3] == [ctypes.c_void_p] * 3
+    assert lib.stream_probe_chase.argtypes[-1] is ctypes.c_void_p  # the stream
+    # row_floats not a multiple of 4: cudaErrorInvalidValue, no launch.
+    rc = lib.stream_probe_chase(0, 0, 0, 1, 1, 6, 0)
+    assert rc == 1 and b"invalid" in lib.stream_probe_error_string(rc)
+
+
 @pytest.mark.parametrize("variant", ["unfolded", "folded", "folded_bf16_acts"])
 def test_bf16_resnet_on_the_card_matches_the_cpu(cuda, variant):
     """The pretrained connect4 ResNet at bf16 on the card against the same
