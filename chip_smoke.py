@@ -114,7 +114,28 @@ In order, it:
    whole-search check of 4c) and gomoku (64 lanes x 400 sims); each timed
    as in 4b, profiled for one move, and checked to run its convs on bf16
    weights with the hidden store in its activation dtype;
-12. prints one {"kernels": [...]} JSON line, then ends with
+12. the learner (trainer.py), on replay batches from the games of 3d and 4b:
+   a. cartpole's main path (batch 128, unroll 10, Adam, PER, 8 fused
+      steps, remat) from the shipped checkpoint and its Adam state: one
+      fused call on the card against the same call on the CPU (losses,
+      priorities, params, Adam moments; tolerances at LEARN_F32);
+   b. the card's train-step rate over 25 fused calls, the host's batch
+      assembly timed apart; one fused call profiled (launches per step,
+      the card's busy share);
+   c. the learn loop, 4 rounds of: play a chunk (1,024 lanes, the fused
+      kernel), save the completed games, take 8 batches, one fused train
+      call, write the priorities back, hand the weights to the driver; after
+      each hand-off the driver's next search on the card against
+      search_plain on the learner's module (bit-equal, as in 3b); each
+      stage's ms; then a sync_checkpoint / save / load / restore round
+      trip whose next fused call must equal the original's bit for bit;
+   d. connect4's 3 x 64 ResNet (batch 64, unroll 42) from the shipped
+      checkpoint, in f32 and bf16: one step on the card against the CPU's
+      (running statistics included), and the card's rate;
+   e. gomoku's full config (6 x 128, batch 512, unroll 121) in bf16 with
+      remat: one step's time and peak memory; at batch 16, remat against
+      the plain unroll, bit-equal (cuDNN deterministic);
+13. prints one {"kernels": [...]} JSON line, then ends with
    {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
@@ -372,7 +393,8 @@ def compare_case(name, cfg, net, B, num_players, noise, random_legal, seed):
 
 
 def cartpole_path():
-    """Phases 3a-3c; returns the fused kernel's entry of the kernels line."""
+    """Phases 3a-3d; returns the replay buffer of 3d and the fused kernel's
+    entry of the kernels line."""
     from muzero_general_tpu_torch.config import MuZeroConfig as BaseConfig
     from muzero_general_tpu_torch.games.cartpole import MuZeroConfig, make_env
     from muzero_general_tpu_torch.models import MuZeroNetwork
@@ -485,8 +507,8 @@ def cartpole_path():
         fail(f"cartpole greedy check: mean return {mean_return:.2f} < 100")
 
     # ---- 3d. replay ------------------------------------------------------
-    replay_phase("cartpole replay", MuZeroConfig(), completed)
-    return {
+    cart_replay = replay_phase("cartpole replay", MuZeroConfig(), completed)
+    return cart_replay, {
         "name": "mcts_fused_search",
         "route": "cuda",
         "source": CSRC + "mcts_fused.cu",
@@ -519,7 +541,7 @@ def replay_phase(label, cfg, games, seed=0):
     assembled on the C++ assembler and on the numpy path from the same rng
     state (bit-equal, finite); the PER weights in (0, 1] with a max of 1;
     priorities written back; get_batch and one BatchPrefetcher.take(8) timed
-    on the host, and a batch moved onto the card."""
+    on the host, and a batch moved onto the card. Returns the buffer."""
     import numpy as np
 
     from muzero_general_tpu_torch.prefetch import BatchPrefetcher
@@ -599,6 +621,7 @@ def replay_phase(label, cfg, games, seed=0):
     log(f"[{label}] host ms: get_batch {native_ms:.3f} (C++ assembler, median of 20), numpy "
         f"path {numpy_ms:.3f} (median of 5), BatchPrefetcher.take(8) {take_ms:.3f} from a "
         f"cold start; one batch onto the card {to_card_ms:.3f} ({nbytes / 1e6:.3f} MB)")
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -804,23 +827,18 @@ def whole_search_check(driver, folded, game="connect4"):
     return k, legal
 
 
-def profile_move(driver, move_ms, means=()):
-    """One move under torch.profiler: the device time of its kernels, their
-    launches per simulation, the card's busy share of an unprofiled move
-    (`move_ms`, the profiler slows the host) and the largest kernels; for
-    each name in `means`, the mean device time per launch of the kernels
-    whose names hold it. Prints "not measured" when the trace holds no
-    device time."""
+def device_trace(fn):
+    """fn() once under torch.profiler (device activity only: the host ops'
+    events are not needed for the busy share and would double the trace the
+    profiler parses on exit). Returns the device kernels as (device us,
+    name, launches) rows, the profiled wall ms, and when the parse began."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    temps = torch.ones((driver.G,))
     torch.cuda.synchronize()
-    # Device activity only: the host ops' events are not needed for the
-    # busy share and would double the trace the profiler parses on exit.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        driver.play_chunk(temps, 1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t_parse = time.perf_counter()
@@ -834,7 +852,18 @@ def profile_move(driver, move_ms, means=()):
         total = totals.setdefault(evt.name(), [0.0, 0])
         total[0] += evt.duration_ns() / 1e3
         total[1] += 1
-    rows = [(dev_us, key, count) for key, (dev_us, count) in totals.items()]
+    return [(dev_us, key, count) for key, (dev_us, count) in totals.items()], wall_ms, t_parse
+
+
+def profile_move(driver, move_ms, means=()):
+    """One move under torch.profiler: the device time of its kernels, their
+    launches per simulation, the card's busy share of an unprofiled move
+    (`move_ms`, the profiler slows the host) and the largest kernels; for
+    each name in `means`, the mean device time per launch of the kernels
+    whose names hold it. Prints "not measured" when the trace holds no
+    device time."""
+    temps = torch.ones((driver.G,))
+    rows, wall_ms, t_parse = device_trace(lambda: driver.play_chunk(temps, 1))
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
         log(f"[profile] one move: {wall_ms:.2f} ms wall (profiled); device time: not "
@@ -908,7 +937,8 @@ def design_fields(name, numbers):
 
 
 def connect4_path():
-    """Phases 4a-4d; returns the two kernels' entries of the kernels line."""
+    """Phases 4a-4d; returns the two kernels' entries of the kernels line,
+    the end state of 4c and the replay buffer of 4b."""
     from muzero_general_tpu_torch.games.connect4 import MuZeroConfig, make_env
     from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
     from muzero_general_tpu_torch.ops import mcts_kernels
@@ -958,7 +988,7 @@ def connect4_path():
         f"{kernels['backprop']['ms']:.4f})); the other {loop_ms - dev_net - dev_kern:.3f} ms "
         f"is host time the card waits on and small ops")
     profile_move(driver, loop_ms)
-    replay_phase("connect4 replay", MuZeroConfig(), games)
+    c4_replay = replay_phase("connect4 replay", MuZeroConfig(), games)
 
     # ---- 4c, 4d ----------------------------------------------------------
     end_state = (*whole_search_check(driver, folded), driver.spec)
@@ -982,7 +1012,7 @@ def connect4_path():
             "bound_by": kernels[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call descends or backs up a tree
         })
-    return entries, end_state
+    return entries, end_state, c4_replay
 
 
 # ---------------------------------------------------------------------------
@@ -1991,6 +2021,415 @@ def bf16_lanes():
               means=("descend_stream_kernel",))
 
 
+# ---------------------------------------------------------------------------
+# The learner (trainer.py): cartpole's main path and the learn loop with the
+# fused-search kernel, checkpoints, connect4 and gomoku at full width
+# ---------------------------------------------------------------------------
+
+# Card against CPU, float32 (the reductions run in another order): losses
+# rtol 1e-4; priorities compared as |value - target| (priority ** (1 /
+# PER_alpha): the square root's slope at 0 would magnify any difference
+# there) within 1e-4 of the batch's largest |target value| (cartpole's
+# reach ~100; after 8 steps the decode carries the params' drift); running
+# statistics rtol 1e-4; the FC net's params (a warm Adam state
+# from the shipped checkpoint) 1e-5, its Adam moments within 1e-4 of each
+# tensor's largest. ResNets: a ReLU pre-activation within rounding of 0 can
+# take the other side of the kink on the other device and move that
+# position's gradient term (tests/test_torch_checkpoint.py), so >= 99% of
+# the params must lie within 1e-5 and none farther than 10 x lr (twice the
+# largest step a warm Adam makes). bfloat16 (cuDNN against oneDNN, each
+# rounding its own products): losses rtol 2e-2; |value - target| within
+# twice bf16's own error on the same batch, the largest difference between
+# the CPU's bf16 and f32 steps (bf16 logits are ~4e-3 off, which the
+# decode's h^-1 magnifies to O(1) at values near 10); running statistics
+# within 5e-3 and rtol 2e-2 (a batch mean of bf16-rounded conv outputs,
+# weighted 0.1); >= 99% of params within 1e-4.
+LEARN_F32 = dict(loss_rtol=1e-4, gap_tol=1e-4, stats_tol=(1e-5, 1e-4), close=1e-5)
+LEARN_BF16 = dict(loss_rtol=2e-2, gap_tol=2.0, stats_tol=(5e-3, 2e-2), close=1e-4)
+MOMENT_TOL = 1e-4
+
+
+def stacked_batches(buf, n):
+    """n PER batches assembled on the host and stacked on a leading axis, as
+    Learner.train_steps takes them; (their index batches, the stacked dict)."""
+    import numpy as np
+
+    parts = [buf.get_batch() for _ in range(n)]
+    return [ib for ib, _ in parts], {k: np.stack([b[k] for _, b in parts]) for k in parts[0][1]}
+
+
+def learner_pair(cfg, path=None, seed=0):
+    """A learner on the card and one on the CPU from the same weights: the
+    checkpoint's, with its optimizer state, where `path` is given."""
+    from muzero_general_tpu_torch.checkpoint import load_checkpoint, restore_learner
+    from muzero_general_tpu_torch.trainer import Learner
+
+    pair = []
+    for dev in (None, "cpu"):
+        learner = Learner(cfg, device=dev, seed=seed)
+        if path is not None:
+            restore_learner(learner, load_checkpoint(path))
+        pair.append(learner)
+    return pair
+
+
+def compare_learners(label, card, cpu, stacked, loss_rtol, gap_tol, stats_tol, close,
+                     share=None, moments=False, gap_ref=None):
+    """One fused call on `stacked` by each learner; fail unless the card's
+    (metrics, priorities) and state equal the CPU's within the stated
+    tolerances (LEARN_F32, LEARN_BF16): the priorities' |value - target|
+    within gap_tol of the largest |target value|, or, given `gap_ref` (the
+    CPU's f32 priorities on the same batch from the same weights), within
+    gap_tol times the CPU's own distance from them. `share`
+    None: every param within `close`; else that share of the elements, and
+    none farther than 10 x lr. Returns the CPU's priorities."""
+    from muzero_general_tpu_torch.checkpoint import optimizer_state_to_jax
+
+    t0 = time.perf_counter()
+    m_cpu, p_cpu = cpu.train_steps(stacked)
+    cpu_s = time.perf_counter() - t0
+    m_card, p_card = card.train_steps(stacked)
+    err = {}
+    for key in ("total_loss", "value_loss", "reward_loss", "policy_loss"):
+        got, want = float(m_card[key]), float(m_cpu[key])
+        if not abs(got - want) <= loss_rtol * abs(want) or got != got:
+            fail(f"{label}: {key} {got!r} on the card, {want!r} on the CPU")
+        err[key] = abs(got - want) / abs(want)
+    p_card = p_card.cpu()
+    if not bool(torch.isfinite(p_card).all()) or p_card.shape != p_cpu.shape:
+        fail(f"{label}: priorities {tuple(p_card.shape)} not finite or not the CPU's shape")
+    alpha = card.config.PER_alpha
+    gap_card, gap_cpu = p_card.double() ** (1 / alpha), p_cpu.double() ** (1 / alpha)
+    d = (gap_card - gap_cpu).abs()
+    scale = float(abs(stacked["target_value"]).max())
+    if gap_ref is None:
+        gap_bound = gap_tol * max(scale, 1.0)
+    else:
+        own = float((gap_cpu - gap_ref.double() ** (1 / alpha)).abs().max())
+        gap_bound = gap_tol * own
+        log(f"[{label}] bf16's own error on the CPU: |value - target| {own:.4g} from f32's")
+    if bool((d > gap_bound).any()):
+        fail(f"{label}: |value - target| differs by up to {float(d.max())!r} "
+             f"(priorities by {float((p_card - p_cpu).abs().max())!r})")
+    err["priorities"] = float(d.max())
+    s_card, s_cpu = card.network.state_dict(), cpu.network.state_dict()
+    names = dict(card.network.named_parameters())
+    worst, far, total, out = 0.0, 0, 0, 0
+    lr_bound = 10 * card.config.lr_init
+    for key, want in s_cpu.items():
+        got = s_card[key].cpu()
+        if key.endswith("num_batches_tracked"):
+            continue
+        diff = (got.double() - want.double()).abs()
+        if key.endswith(("running_mean", "running_var")):
+            if bool((diff > stats_tol[0] + stats_tol[1] * want.abs()).any()):
+                fail(f"{label}: {key} differs by up to {float(diff.max())!r}")
+            continue
+        if key not in names:
+            continue
+        worst = max(worst, float(diff.max()))
+        total += diff.numel()
+        out += int((diff > close).sum())
+        far += int((diff > lr_bound).sum())
+    err["params"] = worst
+    err["params_beyond"] = out / total
+    if share is None and out:
+        fail(f"{label}: {out} of {total} params farther than {close} from the CPU's "
+             f"(largest {worst!r})")
+    if share is not None and (out > (1 - share) * total or far):
+        fail(f"{label}: {out} of {total} params farther than {close} from the CPU's, "
+             f"{far} farther than {lr_bound}")
+    if moments:
+        a, b = optimizer_state_to_jax(card), optimizer_state_to_jax(cpu)
+        for key in ("mu", "nu"):
+            for (name, x), (_, y) in zip(_flax_leaves(a[key]), _flax_leaves(b[key])):
+                if abs(x - y).max() > MOMENT_TOL * max(abs(y).max(), 1e-30):
+                    fail(f"{label}: Adam {key} of {name} differs by {abs(x - y).max()!r}")
+        if int(a["count"]) != int(b["count"]):
+            fail(f"{label}: Adam count {a['count']} on the card, {b['count']} on the CPU")
+    log(f"[{label}] card vs CPU: losses within {max(err[k] for k in err if 'loss' in k):.3g} "
+        f"relative, |value - target| of the priorities {err['priorities']:.3g}, params {worst:.3g} "
+        f"({100 * err['params_beyond']:.4f}% beyond {close}), running statistics within "
+        f"{stats_tol[0]} + rtol {stats_tol[1]}" + ("; Adam moments and count as the CPU's" if moments else "")
+        + f"; largest |target value| {scale:.4g}; the CPU's call took {cpu_s:.2f} s")
+    return p_cpu
+
+
+def _flax_leaves(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flax_leaves(value, f"{prefix}{key}.")
+        else:
+            yield prefix + key, value
+
+
+def learner_rate(learner, calls, label, steps):
+    """The card's train-step rate over `calls` ((index batches, stacked
+    batches) pairs, assembled before), after one warm-up call."""
+    learner.train_steps(calls[0][1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, stacked in calls:
+        learner.train_steps(stacked)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rate = len(calls) * steps / seconds
+    log(f"[{label}] {len(calls)} fused calls of {steps} steps in {seconds * 1e3:.1f} ms: "
+        f"{rate:.2f} train steps/s ({seconds * 1e3 / (len(calls) * steps):.3f} ms a step)")
+    return rate, seconds * 1e3 / len(calls)
+
+
+def profile_learner(learner, stacked, call_ms, label):
+    """One fused call under the profiler: device kernels (launches) per
+    training step and the card's busy share of an unprofiled call."""
+    steps = next(iter(stacked.values())).shape[0]
+    rows, wall_ms, _ = device_trace(lambda: learner.train_steps(stacked))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms <= 0:
+        log(f"[{label}] profile: device time not measured (the trace holds none)")
+        return
+    launches = sum(r[2] for r in rows)
+    share = 100 * busy_ms / call_ms
+    log(f"[{label}] profile of one fused call: {busy_ms:.3f} ms of device kernels, "
+        f"{launches} launches ({launches / steps:.1f} per training step, {len(rows)} "
+        f"kernel names); {wall_ms:.2f} ms wall profiled; of an unprofiled call "
+        f"({call_ms:.2f} ms) the card is busy {share:.1f}%, idle {100 - share:.1f}%")
+    for dev_us, key, count in sorted(rows, reverse=True)[:6]:
+        log(f"[{label}]   {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def cartpole_learner(buf):
+    """12a-12c: cartpole's main path (batch 128, unroll 10, Adam, PER,
+    8 fused steps) on the card against the CPU, its rate and profile, the
+    learn loop and a checkpoint round trip. Returns the fused kernel's
+    launches in the loop's play stages."""
+    import numpy as np
+
+    from muzero_general_tpu_torch import checkpoint
+    from muzero_general_tpu_torch.games.cartpole import MuZeroConfig, make_env
+    from muzero_general_tpu_torch.models import MuZeroNetwork
+    from muzero_general_tpu_torch.ops import mcts_fused
+    from muzero_general_tpu_torch.ops.stacking import stack_observations
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+    from muzero_general_tpu_torch.trainer import Learner
+
+    cfg = MuZeroConfig()
+    M = cfg.fused_train_steps
+    if not (cfg.optimizer == "Adam" and cfg.PER and cfg.remat_unroll and M == 8):
+        fail("cartpole learner: the config is not the main path's")
+    # ---- 12a. one fused call, card against CPU ------------------------------
+    buf.rng = np.random.default_rng(1)
+    _, stacked = stacked_batches(buf, M)
+    card, cpu = learner_pair(cfg, CART_CHECKPOINT)
+    compare_learners("cartpole learner", card, cpu, stacked, **LEARN_F32, moments=True)
+
+    # ---- 12b. the rate, with the host's batch assembly timed apart ---------
+    t0 = time.perf_counter()
+    calls = [stacked_batches(buf, M) for _ in range(26)]
+    assemble_ms = (time.perf_counter() - t0) * 1e3 / len(calls)
+    log(f"[cartpole learner] host batch assembly: {assemble_ms:.3f} ms per {M} batches "
+        f"(get_batch on the C++ assembler and np.stack; {cfg.batch_size} x "
+        f"{cfg.num_unroll_steps + 1} positions each)")
+    rate, call_ms = learner_rate(card, calls[1:], "cartpole learner", M)
+    profile_learner(card, calls[0][1], call_ms, "cartpole learner")
+
+    # ---- 12c. the learn loop ------------------------------------------------
+    play_cfg = MuZeroConfig()
+    play_cfg.parallel_games, play_cfg.selfplay_chunk_moves = 1024, 8
+    net = MuZeroNetwork(play_cfg)
+    net.load_state_dict(card.network.state_dict())
+    driver = SelfPlayDriver(make_env(), net, play_cfg, seed=3)
+    if driver.search_route != "fused":
+        fail("learn loop: the driver did not route to the fused search")
+    E = play_cfg.encoding_size
+    stages = {k: [] for k in ("play", "save", "batches", "train", "priorities", "hand-off")}
+    launches, games_saved = 0, 0
+    mcts_fused.search.launches = 0
+    previous = mcts_fused.fused_weights(driver.network, E).flat.clone()
+    for rnd in range(4):
+        marks = [time.perf_counter()]
+        games, _ = driver.play(temperature=1.0)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        launches += mcts_fused.search.launches
+        mcts_fused.search.launches = 0
+        for gh in games:
+            buf.save_game(gh)
+        games_saved += len(games)
+        marks.append(time.perf_counter())
+        index_batches, stacked = stacked_batches(buf, M)
+        marks.append(time.perf_counter())
+        _, priorities = card.train_steps(stacked)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        priorities = priorities.cpu().numpy()
+        for m, index_batch in enumerate(index_batches):
+            buf.update_priorities(priorities[m], index_batch)
+        marks.append(time.perf_counter())
+        driver.load_weights(card.network.state_dict())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for name, a, b in zip(stages, marks, marks[1:]):
+            stages[name].append((b - a) * 1e3)
+        # The driver's next search, on the handed-off weights: the kernel
+        # against search_plain on the learner's own module.
+        packed = mcts_fused.fused_weights(driver.network, E)
+        if torch.equal(packed.flat, previous):
+            fail(f"learn loop round {rnd}: the driver's weights did not change")
+        previous = packed.flat.clone()
+        carry = driver._carry
+        with torch.no_grad():
+            stacked_obs = stack_observations(carry.obs_hist, carry.act_hist, driver.A)
+            legal = driver.env.legal_actions_mask(carry.env_state)
+            root = mcts_fused.prepare_root(driver.network, stacked_obs, legal,
+                                           driver.env.to_play(carry.env_state),
+                                           driver.generator, driver.fused_spec)
+            args = (root.prior, root.hidden, root.reward, root.to_play, root.legal)
+            kw = mcts_fused.search_kwargs(driver.fused_spec) | {"seed": 100 + rnd}
+            got = mcts_fused.search(*args, packed, **kw)
+            want = mcts_fused.search_plain(*args, mcts_fused.fused_weights(card.network, E),
+                                           **kw)
+        check_equal(f"learn loop round {rnd}: the driver's search on handed-off weights",
+                    got, want, legal, play_cfg.num_simulations)
+        mcts_fused.search.launches = 0
+    moves = 4 * play_cfg.selfplay_chunk_moves
+    if launches != moves:
+        fail(f"learn loop: {launches} fused-search launches for {moves} moves")
+    log(f"[learn loop] 4 rounds of play ({driver.G} lanes x {play_cfg.num_simulations} sims, "
+        f"{play_cfg.selfplay_chunk_moves} moves, fused kernel launched {launches} times), "
+        f"save ({games_saved} games in all), {M} batches, one fused train call, priorities "
+        f"back, weights to the driver. ms per round: "
+        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in stages.items())
+        + " (medians)")
+
+    # ---- checkpoint round trip ---------------------------------------------
+    path = REPO / "results" / "chip_smoke" / "model.checkpoint"
+    ckpt = checkpoint.initial_checkpoint()
+    checkpoint.sync_checkpoint(ckpt, card, buf)
+    checkpoint.save_checkpoint(ckpt, path)
+    resumed = Learner(cfg, seed=9)
+    checkpoint.restore_learner(resumed, checkpoint.load_checkpoint(path))
+    _, stacked = stacked_batches(buf, M)
+    (m1, p1), (m2, p2) = card.train_steps(stacked), resumed.train_steps(stacked)
+    s1, s2 = card.network.state_dict(), resumed.network.state_dict()
+    same = (torch.equal(p1, p2) and all(torch.equal(m1[k], m2[k]) for k in
+                                        ("total_loss", "value_loss", "reward_loss", "policy_loss"))
+            and all(torch.equal(s1[k], s2[k]) for k in s1))
+    if not same or resumed.training_step != card.training_step:
+        fail("checkpoint round trip: the resumed learner's next fused call differs")
+    log(f"[checkpoint] sync_checkpoint -> save_checkpoint ({path.stat().st_size} bytes) -> "
+        f"load_checkpoint -> restore_learner at training_step {ckpt['training_step']}: the next "
+        f"fused call ({M} steps) on the card equal bit for bit (losses, priorities, params)")
+    return launches
+
+
+def connect4_learner(buf):
+    """12d: connect4's 3 x 64 ResNet (batch 64, unroll 42) from the shipped
+    checkpoint with its Adam state, in f32 and bf16: one step on the card
+    against the CPU's (running statistics included), and the card's rate."""
+    import numpy as np
+
+    from muzero_general_tpu_torch.games.connect4 import MuZeroConfig
+
+    rates, ref = {}, None
+    for dtype, tol in (("float32", LEARN_F32), ("bfloat16", LEARN_BF16)):
+        cfg = MuZeroConfig()
+        cfg.compute_dtype = dtype
+        label = f"connect4 learner {dtype}"
+        buf.rng = np.random.default_rng(2)
+        _, stacked = stacked_batches(buf, 1)
+        card, cpu = learner_pair(cfg, C4_CHECKPOINT)
+        p_cpu = compare_learners(label, card, cpu, stacked, **tol, share=0.99, gap_ref=ref)
+        ref = p_cpu if ref is None else ref
+        calls = [stacked_batches(buf, 2) for _ in range(4)]
+        rates[dtype], _ = learner_rate(card, calls, label, 2)
+    return rates
+
+
+def gomoku_learner():
+    """12e: gomoku's full config (6 x 128, batch 512, unroll 121) in bf16
+    with remat_unroll: one step's time and peak memory; at batch 16, remat
+    against the plain unroll (cuDNN deterministic): equal losses,
+    priorities, params and running statistics."""
+    import numpy as np
+
+    from muzero_general_tpu_torch.games.gomoku import MuZeroConfig
+    from muzero_general_tpu_torch.trainer import Learner
+
+    def batch(cfg, seed):
+        rng = np.random.default_rng(seed)
+        B, U, A = cfg.batch_size, cfg.num_unroll_steps, len(cfg.action_space)
+        c, h, w = cfg.observation_shape
+        n = cfg.stacked_observations
+        return {
+            "observation": (rng.random((1, B, c * (n + 1) + n, h, w)) < 0.2).astype(np.float32),
+            "action": rng.integers(0, A, (1, B, U + 1)).astype(np.int32),
+            "target_value": rng.uniform(-1, 1, (1, B, U + 1)).astype(np.float32),
+            "target_reward": rng.uniform(-1, 1, (1, B, U + 1)).astype(np.float32),
+            "target_policy": rng.dirichlet(np.ones(A), (1, B, U + 1)).astype(np.float32),
+            "weight": rng.uniform(0.1, 1.0, (1, B)).astype(np.float32),
+            "gradient_scale": np.full((1, B, U + 1), U, np.float32),
+        }
+
+    cfg = MuZeroConfig()
+    cfg.compute_dtype = "bfloat16"
+    if not (cfg.remat_unroll and cfg.batch_size == 512 and cfg.num_unroll_steps == 121):
+        fail("gomoku learner: not the shipped config with remat_unroll")
+    learner = Learner(cfg, seed=0)
+    data = batch(cfg, 0)
+    metrics, _ = learner.train_steps(data)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, prio = learner.train_steps(batch(cfg, 1))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not (bool(torch.isfinite(prio).all()) and np.isfinite(float(metrics["total_loss"]))):
+        fail("gomoku learner: non-finite loss or priorities")
+    log(f"[gomoku learner] bf16, {cfg.blocks} x {cfg.channels}, batch {cfg.batch_size}, unroll "
+        f"{cfg.num_unroll_steps}, remat: one step {step_ms:.1f} ms, peak memory {peak / 2**30:.3f} GiB "
+        f"(max_memory_allocated), loss {float(metrics['total_loss']):.4f}")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = []
+        for remat in (True, False):
+            small = MuZeroConfig()
+            small.compute_dtype, small.batch_size, small.remat_unroll = "bfloat16", 16, remat
+            learner = Learner(small, seed=1)
+            torch.cuda.reset_peak_memory_stats()
+            metrics, prio = learner.train_steps(batch(small, 2))
+            torch.cuda.synchronize()
+            outs.append((metrics, prio, learner.network.state_dict(),
+                         torch.cuda.max_memory_allocated()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m1, p1, s1, mem1), (m2, p2, s2, mem2) = outs
+    if not (torch.equal(p1, p2)
+            and all(torch.equal(m1[k], m2[k]) for k in ("total_loss", "value_loss",
+                                                         "reward_loss", "policy_loss"))
+            and all(torch.equal(s1[k], s2[k]) for k in s1)):
+        fail("gomoku learner: remat and the plain unroll differ at batch 16")
+    log(f"[gomoku learner] batch 16: remat and the plain unroll equal bit for bit (losses, "
+        f"priorities, params, running statistics); peak memory {mem1 / 2**30:.3f} GiB "
+        f"against {mem2 / 2**30:.3f} GiB")
+    return step_ms, peak
+
+
+def learner_phase(cart_replay, c4_replay):
+    """Phase 12; returns the fused kernel's launches in the learn loop."""
+    t0 = time.perf_counter()
+    launches = cartpole_learner(cart_replay)
+    log(f"[done] cartpole learner after {time.perf_counter() - t0:.1f} s of the phase")
+    connect4_learner(c4_replay)
+    log(f"[done] connect4 learner after {time.perf_counter() - t0:.1f} s of the phase")
+    gomoku_learner()
+    log(f"[done] gomoku learner after {time.perf_counter() - t0:.1f} s of the phase")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2008,9 +2447,10 @@ def main():
 
     # ---- 2.-11. ---------------------------------------------------------
     build_kernels()
-    kernels = [cartpole_path()]
+    cart_replay, fused_entry = cartpole_path()
+    kernels = [fused_entry]
     log(f"[done] cartpole path after {time.perf_counter() - t_start:.1f} s")
-    entries, end_state = connect4_path()
+    entries, end_state, c4_replay = connect4_path()
     kernels += entries
     log(f"[done] connect4 path after {time.perf_counter() - t_start:.1f} s")
     kernels += connect4_multileaf_path()
@@ -2025,6 +2465,8 @@ def main():
     kernels.append(stream_probe_phase(descend["per_level_us"]))
     log(f"[done] probes after {time.perf_counter() - t_start:.1f} s")
     bf16_lanes()
+    log(f"[done] bf16 lanes after {time.perf_counter() - t_start:.1f} s")
+    fused_entry["learn_loop_launches"] = learner_phase(cart_replay, c4_replay)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -5,6 +5,8 @@ from muzero_general_tpu_torch.models.network import (
     activation_dtype,
     fold_bn,
     params_from_jax,
+    params_to_jax,
 )
 
-__all__ = ["MuZeroNetwork", "activation_dtype", "fold_bn", "params_from_jax"]
+__all__ = ["MuZeroNetwork", "activation_dtype", "fold_bn", "params_from_jax",
+           "params_to_jax"]

@@ -155,16 +155,24 @@ class BatchNorm(nn.BatchNorm2d):
     and updates the running statistics as flax does:
     ra = 0.9 * ra + 0.1 * batch, with the biased variance. (nn.BatchNorm2d
     would update running_var with the unbiased one, n / (n - 1) larger.)
+
+    `update_stats` False keeps the running statistics as they are in train
+    mode: the learner clears it while a rematerialized unroll step runs its
+    forward a second time (trainer.py), so each inference updates them once,
+    as flax's carried `batch_stats` do.
     """
+
+    update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
         # No running statistics passed: normalise by the batch's own.
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 

@@ -1,5 +1,5 @@
-"""Network factory, batch-norm folding and the weight carry from the JAX
-package (port of models/network.py).
+"""Network factory, batch-norm folding and the weight carry to and from the
+JAX package (port of models/network.py).
 
 `MuZeroNetwork(config)` dispatches on `config.network` like reference
 models.py:7-41 and returns the module itself, in eval mode, on the device:
@@ -20,6 +20,7 @@ from muzero_general_tpu_torch.models.resnet import ResMuZero
 # flax leaf name -> torch state-dict name, per layer kind
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
+_BN_FLAX = {name: leaf for leaf, name in _BN_LEAVES.items()}
 
 
 def compute_dtype(config) -> torch.dtype:
@@ -173,3 +174,37 @@ def params_from_jax(variables: dict) -> dict:
         state[f"{scope}.{_BN_LEAVES[leaf]}"] = torch.from_numpy(x.copy())
         state[f"{scope}.num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+def params_to_jax(source) -> dict:
+    """The inverse of params_from_jax: a module's (or a state dict's)
+    tensors as the flax variable tree {"params": ..., "batch_stats": ...}
+    of numpy float32 arrays, `batch_stats` {} for an FC net.
+
+    nn.Linear weights [out, in] go back to TorchDense kernels [in, out],
+    nn.Conv2d weights OIHW to TorchConv kernels HWIO, and batch-norm
+    weight/bias/running_mean/running_var to scale/bias (params) and
+    mean/var (batch_stats); num_batches_tracked has no flax counterpart. A
+    dict of some parameters' tensors (the optimizer's moments) maps the
+    same way into "params".
+    """
+    state = source.state_dict() if isinstance(source, nn.Module) else source
+    variables = {"params": {}, "batch_stats": {}}
+    for name, value in state.items():
+        scope, _, leaf = name.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        x = value.detach().to("cpu", torch.float32).numpy()
+        collection = "params"
+        if scope.rpartition(".")[2].startswith("BatchNorm_"):
+            if leaf.startswith("running_"):
+                collection = "batch_stats"
+            leaf = _BN_FLAX[leaf]
+        elif leaf == "weight":
+            leaf = "kernel"
+            x = x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T
+        node = variables[collection]
+        for key in scope.split("."):
+            node = node.setdefault(key, {})
+        node[leaf] = np.array(x, np.float32, order="C")
+    return variables

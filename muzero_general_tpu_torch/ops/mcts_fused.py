@@ -118,6 +118,57 @@ def extract_fc_weights(network, encoding_size):
     return tuple(flat), tuple(counts)
 
 
+# The kernel's shared-memory budget per block and its block size
+# (csrc/mcts_fused.cu MAX_SMEM_BYTES, kThreads).
+MAX_SMEM_BYTES = 227 * 1024
+KERNEL_THREADS = 128
+
+
+def fc_search_dims(config) -> Tuple[Tuple[int, int], ...]:
+    """The (in, out) of every layer `fused_weights` packs for an FC config:
+    the dynamics MLP over concat(hidden, one-hot), then the reward, policy
+    and value MLPs."""
+    E, A = config.encoding_size, len(config.action_space)
+    S2 = 2 * config.support_size + 1
+    dims = []
+    for fan_in, hidden, out in (
+        (E + A, config.fc_dynamics_layers, E),
+        (E, config.fc_reward_layers, S2),
+        (E, config.fc_policy_layers, A),
+        (E, config.fc_value_layers, S2),
+    ):
+        sizes = [fan_in] + list(hidden) + [out]
+        dims += list(zip(sizes[:-1], sizes[1:]))
+    return tuple(dims)
+
+
+def smem_bytes(dims, num_sims: int, A: int, E: int, support_size: int,
+               lanes: int) -> int:
+    """Shared memory the kernel asks for a block of `lanes` lanes, as
+    csrc/mcts_fused.cu's mcts_fused_search computes it: the block's copy of
+    the weights, the pUCT tables, and each lane's tree and buffers."""
+    n_weights = sum(fan_in * fan_out + fan_out for fan_in, fan_out in dims)
+    maxw = max(max(pair) for pair in dims)
+    N = num_sims + 1
+    weight_words = (n_weights + 3) & ~3
+    table_n = num_sims + 2
+    soft_width = max(2 * support_size + 1, A)
+    lane_words = (5 * N + 2 * N * A + N * E + A + E + 6 * maxw
+                  + 3 * soft_width + 7 + 3) & ~3
+    tables_words = (table_n * 3 + 3) & ~3
+    return 4 * (weight_words + tables_words + lanes * lane_words)
+
+
+def fits_kernel(config) -> bool:
+    """Whether the kernel can run the config's FC search: one lane a warp
+    (its smallest block) must fit MAX_SMEM_BYTES, else the kernel refuses
+    (-2). The JAX driver's counterpart is choose_block's VMEM check."""
+    return smem_bytes(
+        fc_search_dims(config), config.num_simulations, len(config.action_space),
+        config.encoding_size, config.support_size, KERNEL_THREADS // 32,
+    ) <= MAX_SMEM_BYTES
+
+
 def fused_weights(network, encoding_size) -> FusedWeights:
     """Pack an FCMuZero module's search networks into one f32 buffer."""
     weights_flat, layer_counts = extract_fc_weights(network, encoding_size)

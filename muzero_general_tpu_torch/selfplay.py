@@ -6,9 +6,11 @@ search, temperature action sampling, env step and auto-reset, for
 moves is a Python loop here). The host cuts the emitted per-move records
 into complete `GameHistory` episodes at done boundaries.
 
-The search is routed as the JAX driver routes it: FC networks go to the
-fused single-kernel search (ops/mcts_fused.py) unless `use_fused_search` is
-False, everything else to the staged search (ops/mcts.py run_mcts), whose
+The search is routed as the JAX driver routes it (`search_route`, decided
+once per driver and kept in `SelfPlayDriver.search_route`): FC networks go to the fused
+single-kernel search (ops/mcts_fused.py) unless `use_fused_search` is False
+or, on the card, the search is too big for the kernel's shared memory;
+everything else goes to the staged search (ops/mcts.py run_mcts), whose
 descent and backprop run as kernels where SearchSpec.from_config engages
 them: the planar kernels for trees that fit them (connect4), the stream
 kernels for bigger ones (gomoku). `search_batch_leaves` > 1 runs the staged
@@ -26,6 +28,7 @@ Not ported yet, and refused with NotImplementedError: Gumbel search (ROADMAP
 module item 16). The mesh/dp sharding of lanes (item 19) is not ported either.
 """
 
+import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -43,6 +46,25 @@ from muzero_general_tpu_torch.ops.stacking import (
     stack_observations,
 )
 from muzero_general_tpu_torch.replay import GameHistory
+
+
+_log = logging.getLogger(__name__)
+
+
+def search_route(config, device: torch.device) -> str:
+    """"fused" or "staged", as the JAX driver routes (JAX selfplay.py:99-113).
+
+    The fused single-kernel search takes FC networks (use_fused_search
+    "auto" and True) whose search fits the kernel's shared memory
+    (mcts_fused.fits_kernel) on the card; on the CPU its plain version has
+    no such limit. False, every ResNet, and FC searches too big for the
+    kernel run the staged search."""
+    fused = (
+        config.network == "fullyconnected"
+        and config.use_fused_search is not False
+        and (device.type == "cpu" or mcts_fused.fits_kernel(config))
+    )
+    return "fused" if fused else "staged"
 
 
 class SelfPlayCarry(NamedTuple):
@@ -83,13 +105,11 @@ class SelfPlayDriver:
         self.G = num_games or config.parallel_games
         self.greedy_lanes = greedy_lanes
         self.spec = mcts_ops.SearchSpec.from_config(config, self.G, self.device)
-        # The fused single-kernel search takes FC networks ("auto" and True,
-        # on CPU tensors through its plain version); False, and every ResNet,
-        # run the staged search.
-        self.use_fused = (
-            config.network == "fullyconnected"
-            and config.use_fused_search is not False
-        )
+        self.search_route = search_route(config, self.device)
+        self.use_fused = self.search_route == "fused"
+        _log.info("self-play search route: %s (%s, %d simulations, %s)",
+                  self.search_route, config.network, config.num_simulations,
+                  self.device)
         if self.use_fused:
             self.fused_spec = mcts_fused.FusedSpec.from_config(config)
         # BN folding for the search path (ResNet only), once per play_chunk.
@@ -111,6 +131,12 @@ class SelfPlayDriver:
         self._pending = [[] for _ in range(self.G)]
         # Running reward of the greedy eval lane's in-progress episode
         self._eval_partial = 0.0
+
+    def load_weights(self, state_dict):
+        """Take a learner's weights: one load_state_dict into the driver's
+        eval module, on its device. The next play_chunk folds or packs them
+        for the search."""
+        self.network.load_state_dict(state_dict)
 
     # ------------------------------------------------------------------
     def reset(self, start=None):

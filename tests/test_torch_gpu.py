@@ -1337,3 +1337,85 @@ def test_bf16_resnet_on_the_card_matches_the_cpu(cuda, variant):
         elif i != 1:  # logits (the initial reward is the fixed log one-hot)
             scale = float(want.abs().max())
             torch.testing.assert_close(got, want, rtol=0, atol=3e-2 * scale)
+
+
+def test_cartpole_search_too_big_for_the_fused_kernel_plays_on_the_staged_route(cuda):
+    """1,000 simulations overflow the fused kernel's shared memory: the
+    kernel still refuses them (-2), and the driver routes to the staged
+    search, as the JAX driver does."""
+    cfg = MuZeroConfig()
+    cfg.num_simulations, cfg.selfplay_chunk_moves = 1000, 1
+    G = cfg.parallel_games  # 16: a 1,001-node tree fits the planar kernels
+    assert not mcts_fused.fits_kernel(cfg)
+    args, kw, _ = _inputs(cfg, G, 1, False, 0, cuda)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        mcts_fused.search(*args, **kw)
+    driver = SelfPlayDriver(make_env(), MuZeroNetwork(cfg), cfg, seed=0)
+    assert (driver.search_route, driver.use_fused) == ("staged", False)
+    assert driver.spec.use_kernels
+    fused_before = mcts_fused.search.launches
+    descents_before = mcts_kernels.descend_planar.launches
+    record = driver.play_chunk(torch.ones((G,)), 1)
+    torch.cuda.synchronize()
+    assert mcts_fused.search.launches == fused_before
+    assert mcts_kernels.descend_planar.launches == descents_before + 1000
+    torch.testing.assert_close(record.child_visits.sum(-1), torch.ones((1, G), device=cuda))
+
+
+def _learner_config(network, optimizer):
+    cfg = BaseConfig()
+    cfg.observation_shape, cfg.action_space = (1, 1, 4), list(range(2))
+    cfg.encoding_size, cfg.support_size = 4, 5
+    cfg.fc_dynamics_layers = cfg.fc_reward_layers = [8]
+    cfg.fc_value_layers = cfg.fc_policy_layers = [8]
+    cfg.num_unroll_steps, cfg.batch_size, cfg.optimizer = 3, 4, optimizer
+    if network == "resnet":
+        cfg.network, cfg.observation_shape, cfg.action_space = "resnet", (3, 3, 3), list(range(9))
+        cfg.blocks, cfg.channels = 1, 8
+        cfg.reduced_channels_reward = cfg.reduced_channels_value = 2
+        cfg.reduced_channels_policy = 2
+        cfg.resnet_fc_reward_layers = cfg.resnet_fc_value_layers = [8]
+        cfg.resnet_fc_policy_layers = [8]
+    return cfg
+
+
+def _learner_batches(cfg, M, seed=0):
+    rng = np.random.default_rng(seed)
+    B, U, A = cfg.batch_size, cfg.num_unroll_steps, len(cfg.action_space)
+    c, h, w = cfg.observation_shape
+    return {
+        "observation": rng.normal(size=(M, B, c, h, w)).astype(np.float32),
+        "action": rng.integers(0, A, (M, B, U + 1)).astype(np.int32),
+        "target_value": (5 * rng.normal(size=(M, B, U + 1))).astype(np.float32),
+        "target_reward": rng.normal(size=(M, B, U + 1)).astype(np.float32),
+        "target_policy": rng.dirichlet(np.ones(A), (M, B, U + 1)).astype(np.float32),
+        "weight": rng.uniform(0.2, 1.0, (M, B)).astype(np.float32),
+        "gradient_scale": rng.integers(1, U + 1, (M, B, U + 1)).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("network", ["fullyconnected", "resnet"])
+@pytest.mark.parametrize("optimizer", ["Adam", "SGD"])
+def test_learner_on_the_card_matches_the_cpu(cuda, network, optimizer):
+    """A fused 8-step call on the card against the same call on the CPU, f32,
+    from the same weights and batches. Tolerances as tests/test_torch_trainer.py
+    holds the port against JAX: losses rtol 2e-5, priorities rtol 1e-4,
+    params 1e-5 (Adam: 1% of lr * steps), running statistics rtol 1e-4."""
+    from muzero_general_tpu_torch.trainer import Learner
+
+    cfg = _learner_config(network, optimizer)
+    learners = [Learner(cfg, device=dev, seed=0) for dev in ("cpu", cuda)]
+    batches = _learner_batches(cfg, 8)
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = (learner.train_steps(batches) for learner in learners)
+    for key in ("total_loss", "value_loss", "reward_loss", "policy_loss"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], rtol=2e-5, atol=1e-5)
+    assert m_gpu["lr"] == m_cpu["lr"]
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-4, atol=1e-5)
+    atol = 1e-2 * cfg.lr_init * 8 if optimizer == "Adam" else 1e-5
+    s_cpu, s_gpu = (learner.network.state_dict() for learner in learners)
+    for key, want in s_cpu.items():
+        got = s_gpu[key].cpu()
+        if key.endswith("running_mean") or key.endswith("running_var"):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5, msg=key)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=atol, msg=key)

@@ -23,7 +23,8 @@ from muzero_general_tpu_torch.games.cartpole import MuZeroConfig, make_env
 from muzero_general_tpu_torch.games.tictactoe import MuZeroConfig as TicTacToeConfig
 from muzero_general_tpu_torch.games.tictactoe import make_env as tictactoe_env
 from muzero_general_tpu_torch.models import MuZeroNetwork, params_from_jax
-from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+from muzero_general_tpu_torch.ops import mcts_fused
+from muzero_general_tpu_torch.selfplay import SelfPlayDriver, search_route
 
 
 def _config(cls, G=8, sims=12, K=4):
@@ -215,3 +216,56 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     net = MuZeroNetwork(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SelfPlayDriver(make_env(device="cpu"), net, cfg)
+
+
+def _smem_bytes_transcribed(cfg, lanes):
+    """csrc/mcts_fused.cu mcts_fused_search's shared-memory size, line for
+    line, from the cartpole config's layer widths."""
+    E, A, S2 = cfg.encoding_size, len(cfg.action_space), 2 * cfg.support_size + 1
+    dims = [(E + A, 16), (16, E), (E, 16), (16, S2), (E, 16), (16, A), (E, 16), (16, S2)]
+    n_weights, maxw = 0, 0
+    for fan_in, fan_out in dims:
+        n_weights += fan_in * fan_out + fan_out
+        maxw = max(maxw, fan_in, fan_out)
+    N = cfg.num_simulations + 1
+    weight_words = (n_weights + 3) & ~3
+    table_n = cfg.num_simulations + 2
+    soft_width = S2 if S2 > A else A
+    lane_words = (5 * N + 2 * N * A + N * E + A + E + 6 * maxw + 3 * soft_width + 7 + 3) & ~3
+    tables_words = (table_n * 3 + 3) & ~3
+    return 4 * (weight_words + tables_words + lanes * lane_words)
+
+
+# The largest cartpole search the kernel's block of four lanes (one a warp)
+# fits in 227 KB: 784 simulations (232,240 bytes); 785 take 232,512.
+CARTPOLE_FUSED_MAX_SIMS = 784
+
+
+@pytest.mark.parametrize("sims", [50, CARTPOLE_FUSED_MAX_SIMS, CARTPOLE_FUSED_MAX_SIMS + 1, 1000])
+def test_fused_size_rule_matches_the_kernel_and_routes_big_searches_to_staged(sims):
+    cfg = _config(MuZeroConfig, sims=sims)
+    assert mcts_fused.fc_search_dims(cfg) == mcts_fused.fused_weights(
+        MuZeroNetwork(cfg, device="cpu"), cfg.encoding_size).dims
+    for lanes in (4, 8):
+        assert mcts_fused.smem_bytes(
+            mcts_fused.fc_search_dims(cfg), sims, 2, cfg.encoding_size, cfg.support_size,
+            lanes) == _smem_bytes_transcribed(cfg, lanes)
+    fits = _smem_bytes_transcribed(cfg, 4) <= 227 * 1024
+    assert fits == (sims <= CARTPOLE_FUSED_MAX_SIMS) == mcts_fused.fits_kernel(cfg)
+    # On the card the route follows the rule; on the CPU the plain version
+    # has no limit. Every ResNet and use_fused_search=False run staged.
+    assert search_route(cfg, torch.device("cuda")) == ("fused" if fits else "staged")
+    assert search_route(cfg, torch.device("cpu")) == "fused"
+    cfg.use_fused_search = False
+    assert search_route(cfg, torch.device("cpu")) == "staged"
+    assert search_route(_config(TicTacToeConfig, sims=sims), torch.device("cuda")) == "staged"
+
+
+def test_driver_records_its_route_and_plays_on_it():
+    cfg = _config(MuZeroConfig, G=4, sims=8, K=2)
+    cfg.use_fused_search = False
+    driver = _port_driver(cfg)
+    assert (driver.search_route, driver.use_fused) == ("staged", False)
+    _, stats = driver.play(temperature=1.0)
+    assert stats["env_steps"] == 8 and stats["max_tree_depth"] >= 1
+    assert _port_driver(_config(MuZeroConfig)).search_route == "fused"
