@@ -135,8 +135,26 @@ In order, it:
    e. gomoku's full config (6 x 128, batch 512, unroll 121) in bf16 with
       remat: one step's time and peak memory; at batch 16, remat against
       the plain unroll, bit-equal (cuDNN deterministic);
-13. prints one {"kernels": [...]} JSON line, then ends with
-   {"ok": true, "device": {...}}.
+13. orchestration (muzero.py, evaluate.py), through the user's entry points:
+   a. MuZero("cartpole", {"training_steps": 400}).train() at the shipped
+      width (16 lanes x 50 simulations, batch 128, unroll 10, 8 fused
+      steps, the prefetcher): train steps/s, env-steps/s, the phase split,
+      the fused search's launches, the last greedy reward; then
+      test(num_tests=2), the fused search at G = 1, its first 6 launches
+      held against search_plain on the same inputs (visits exact);
+   b. load_model of (a)'s checkpoint and replay buffer: the learner resumes
+      at step 400 with (a)'s weights bit for bit, and trains 8 more steps;
+   c. MuZero("connect4", 64 lanes, 16 steps).train(), across one opponent
+      evaluation game (the B = 1 search; its route printed) and the planar
+      kernels' launches in self-play; the phase split;
+   d. the shipped connect4 checkpoint: test(opponent="expert", num_tests=4),
+      the wins recorded (not gated; 4 games, as each MuZero move's B = 1
+      search on the plain-op route takes seconds on the card);
+   e. `python -m muzero_general_tpu_torch cartpole '{"training_steps": 16,
+      ...}'` in a subprocess: rc 0 and a checkpoint written;
+14. prints one {"kernels": [...]} JSON line (the fused search's entry with
+   its train() and test() launches, the planar kernels' with connect4's
+   train() launches), then ends with {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
 phase fails. It imports nothing of JAX.
@@ -2430,6 +2448,187 @@ def learner_phase(cart_replay, c4_replay):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Orchestration (muzero.py, evaluate.py): MuZero train / test / load_model,
+# the B = 1 evaluation search and the CLI
+# ---------------------------------------------------------------------------
+
+
+def metrics_lines(path):
+    lines = [json.loads(x) for x in (path / "metrics.jsonl").read_text().splitlines()]
+    return [x for x in lines if "total_reward" in x]
+
+
+def phase_split(phase_time, wall_s):
+    shares = {k: f"{v:.2f} s ({100 * v / wall_s:.1f}%)" for k, v in phase_time.items()}
+    rest = wall_s - sum(phase_time.values())
+    return ", ".join(f"{k} {v}" for k, v in shares.items()) + (
+        f", outside the phases {rest:.2f} s ({100 * rest / wall_s:.1f}%)")
+
+
+def timed_train(mz):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck = mz.train()
+    torch.cuda.synchronize()
+    return ck, time.perf_counter() - t0
+
+
+def test_checked(mz, num_tests, check_first=6, **kwargs):
+    """mz.test(...) with the first `check_first` fused-search launches held
+    against search_plain on the same inputs (visits and depth exact, values
+    within VALUE_TOL). Returns (mean reward, kernel launches, checks)."""
+    from muzero_general_tpu_torch.ops import mcts_fused
+
+    kernel = mcts_fused.search
+    checks = []
+
+    def search(*args, **kw):
+        got = kernel(*args, **kw)
+        if len(checks) < check_first:
+            want = mcts_fused.search_plain(*args, **kw)
+            checks.append(check_equal(f"test() at G = 1, move {len(checks)}", got, want,
+                                      args[4] != 0, kw["num_sims"]))
+        return got
+
+    # The kernel's wrapper counts its launches on the module's `search`.
+    search.launches = 0
+    mcts_fused.search = search
+    try:
+        result = mz.test(num_tests=num_tests, **kwargs)
+    finally:
+        mcts_fused.search = kernel
+    return result, search.launches, checks
+
+
+def orchestration_phase(kernels):
+    """Phase 13: the user's entry points on the card. Adds the train and
+    test launches to the kernels' entries."""
+    import shutil
+
+    import numpy as np
+
+    from muzero_general_tpu_torch import MuZero, evaluate
+    from muzero_general_tpu_torch.models import params_to_jax
+    from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
+
+    root = REPO / "results" / "chip_smoke" / "muzero"
+    shutil.rmtree(root, ignore_errors=True)
+    fused_entry = next(k for k in kernels if k["name"] == "mcts_fused_search")
+
+    # ---- 13a. cartpole train() at full width, then test() at G = 1 --------
+    mz = MuZero("cartpole", {"training_steps": 400, "results_path": str(root / "cartpole")})
+    cfg = mz.config
+    width = (cfg.parallel_games, cfg.num_simulations, cfg.batch_size, cfg.num_unroll_steps,
+             cfg.fused_train_steps)
+    if width != (16, 50, 128, 10, 8) or cfg.batch_prefetch is not True:
+        fail(f"13a: not cartpole's shipped config: {width}")
+    mcts_fused.search.launches = 0
+    ck, train_s = timed_train(mz)
+    launches = mcts_fused.search.launches
+    lines = metrics_lines(cfg.results_path)
+    if ck["training_step"] != 400 or launches == 0 or not lines:
+        fail(f"13a: train() ended at step {ck['training_step']} with {launches} fused-search "
+             f"launches and {len(lines)} logged loops")
+    if not all(np.isfinite(ck[k]) for k in ("total_loss", "value_loss", "policy_loss")):
+        fail("13a: non-finite losses")
+    fused_entry["train_launches"] = launches
+    log(f"[muzero cartpole] train() 400 steps in {train_s:.2f} s ({len(lines)} loops): "
+        f"{400 / train_s:.3f} train steps/s, {ck['num_played_steps'] / train_s:.1f} env-steps/s "
+        f"({ck['num_played_games']} games, {ck['num_played_steps']} steps saved), "
+        f"{ck['num_reanalysed_games']} games reanalysed; fused-search launches {launches}; "
+        f"last greedy reward {ck['total_reward']:.1f}, best logged "
+        f"{max(x['total_reward'] for x in lines):.1f}; loss {ck['total_loss']:.4f}")
+    log(f"[muzero cartpole] phase split: {phase_split(mz.phase_time, train_s)}")
+    t0 = time.perf_counter()
+    result, test_launches, checks = test_checked(mz, num_tests=2)
+    test_s = time.perf_counter() - t0
+    if test_launches == 0 or not checks:
+        fail("13a: test() did not launch the fused search")
+    fused_entry["test_launches"] = test_launches
+    log(f"[muzero cartpole] test(num_tests=2): mean reward {result:.1f} in {test_s:.2f} s, "
+        f"{test_launches} fused-search launches at G = 1, the first {len(checks)} equal to "
+        f"search_plain (max |dvalue| {max(checks)!r})")
+
+    # ---- 13b. load_model of 13a's files, 8 more steps ----------------------
+    mz2 = MuZero("cartpole", {"training_steps": 408, "results_path": str(root / "resumed")})
+    mz2.load_model(checkpoint_path=cfg.results_path / "model.checkpoint",
+                   replay_buffer_path=cfg.results_path / "replay_buffer.pkl")
+    learner = mz2._restore_state()
+    loaded = params_to_jax(learner.network)
+    mine, last = dict(_flax_leaves(loaded)), dict(_flax_leaves(ck["weights"]))
+    same = mine.keys() == last.keys() and all(np.array_equal(mine[k], last[k]) for k in mine)
+    if learner.training_step != 400 or not same:
+        fail(f"13b: load_model restored step {learner.training_step}, weights bit-equal {same}")
+    ck2, resume_s = timed_train(mz2)
+    if ck2["training_step"] != 408 or ck2["num_played_games"] < ck["num_played_games"]:
+        fail(f"13b: the resumed run ended at step {ck2['training_step']}")
+    log(f"[muzero cartpole] load_model + 8 steps: resumed at 400 with 13a's weights bit for bit, "
+        f"ended at {ck2['training_step']} in {resume_s:.2f} s; played games "
+        f"{ck['num_played_games']} -> {ck2['num_played_games']}")
+
+    # ---- 13c. connect4 train() across an opponent evaluation ---------------
+    mz3 = MuZero("connect4", {"training_steps": 16, "parallel_games": 64,
+                              "results_path": str(root / "connect4")})
+    routes = []
+    policy_fn = evaluate._mcts_policy_fn
+
+    def recorded_policy_fn(network, config, device):
+        fn = policy_fn(network, config, device)
+        spec = fn.spec
+        routes.append("kernels" if spec.use_kernels else "stream" if spec.use_stream
+                      else "plain-op")
+        return fn
+
+    evaluate._mcts_policy_fn = recorded_policy_fn
+    mcts_kernels.descend_planar.launches = 0
+    mcts_kernels.backprop.launches = 0
+    try:
+        ck3, c4_s = timed_train(mz3)
+    finally:
+        evaluate._mcts_policy_fn = policy_fn
+    c4_launches = {"descend_planar": mcts_kernels.descend_planar.launches,
+                   "backprop": mcts_kernels.backprop.launches}
+    if ck3["training_step"] != 16 or len(routes) != 1 or not all(c4_launches.values()):
+        fail(f"13c: connect4 train() ended at {ck3['training_step']}, {len(routes)} "
+             f"evaluation games, kernel launches {c4_launches}")
+    for entry in kernels:
+        if entry["name"] in c4_launches:
+            entry["train_launches"] = c4_launches[entry["name"]]
+    log(f"[muzero connect4] train() 16 steps, 64 lanes x {mz3.config.num_simulations} sims, in "
+        f"{c4_s:.2f} s; played {ck3['num_played_games']} games; kernel launches {c4_launches}; "
+        f"one opponent ({mz3.config.opponent}) evaluation game, its B = 1 search on the "
+        f"{routes[0]} route (SearchSpec.from_config's block gate at batch 1): MuZero reward "
+        f"{ck3['muzero_reward']:.0f}, opponent {ck3['opponent_reward']:.0f}, "
+        f"{ck3['episode_length']} moves")
+    log(f"[muzero connect4] phase split: {phase_split(mz3.phase_time, c4_s)}")
+
+    # ---- 13d. the shipped connect4 checkpoint against the expert ------------
+    mz4 = MuZero("connect4", {"results_path": str(root / "connect4_test")})
+    mz4.load_model(checkpoint_path=C4_CHECKPOINT)
+    t0 = time.perf_counter()
+    games = 4
+    mean = mz4.test(opponent="expert", num_tests=games)
+    wins = mean * games / 10  # a win is worth 10
+    log(f"[muzero connect4] pretrained vs expert: test(opponent='expert', num_tests={games}) "
+        f"mean MuZero reward {mean:.2f}: {wins:.0f}/{games} wins in "
+        f"{time.perf_counter() - t0:.2f} s (recorded, not gated; JAX won 20/20)")
+
+    # ---- 13e. the CLI in a subprocess --------------------------------------
+    cli = root / "cli"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "muzero_general_tpu_torch", "cartpole",
+         json.dumps({"training_steps": 16, "results_path": str(cli)})],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0 or not (cli / "model.checkpoint").exists():
+        fail(f"13e: the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"[muzero cli] python -m muzero_general_tpu_torch cartpole '{{\"training_steps\": 16, "
+        f"...}}': rc 0, {cli / 'model.checkpoint'} written, {time.perf_counter() - t0:.2f} s")
+    return {"train_s": train_s, "test_reward": result, "connect4_wins": wins}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2467,6 +2666,8 @@ def main():
     bf16_lanes()
     log(f"[done] bf16 lanes after {time.perf_counter() - t_start:.1f} s")
     fused_entry["learn_loop_launches"] = learner_phase(cart_replay, c4_replay)
+    log(f"[done] learner after {time.perf_counter() - t_start:.1f} s")
+    orchestration_phase(kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

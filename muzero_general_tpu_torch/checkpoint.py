@@ -25,6 +25,9 @@ replay buffer is persisted apart as `replay_buffer.pkl` with its counters
   or {"optimizer": "SGD", "trace", "schedule_count"}. The JAX package can
   load a port checkpoint's weights (and counters), but it cannot resume its
   optimizer from this dict: its restore expects optax classes.
+- A JAX-written replay_buffer.pkl holds the JAX package's GameHistory;
+  `load_replay_buffer` gives its games back as the port's, which has the
+  same fields.
 """
 
 import pathlib
@@ -59,6 +62,8 @@ CHECKPOINT_KEYS = [
 # The package whose (NamedTuple) state classes a JAX-written checkpoint holds
 # and which the port never imports.
 _FOREIGN_PACKAGE = "optax"
+# The JAX package's game record, which a JAX-written replay buffer holds.
+_JAX_GAME_HISTORY = ("muzero_general_tpu.replay", "GameHistory")
 
 
 def initial_checkpoint() -> dict:
@@ -95,6 +100,12 @@ class _CheckpointUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.split(".", 1)[0] == _FOREIGN_PACKAGE:
             return type(name, (_ForeignTuple,), {"__module__": module})
+        if (module, name) == _JAX_GAME_HISTORY:
+            # A JAX-written replay_buffer.pkl: the port's GameHistory has the
+            # same fields, so its games load without the JAX package.
+            from muzero_general_tpu_torch.replay import GameHistory
+
+            return GameHistory
         return super().find_class(module, name)
 
 
@@ -127,8 +138,9 @@ def save_replay_buffer(replay_buffer, checkpoint: dict, path):
 
 
 def load_replay_buffer(path) -> dict:
+    """A replay_buffer.pkl written by either package."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _CheckpointUnpickler(f).load()
 
 
 # ---------------------------------------------------------------------------
@@ -213,17 +225,23 @@ def restore_learner(learner, checkpoint: dict):
     learner.training_step = int(checkpoint["training_step"])
 
 
-def sync_checkpoint(checkpoint: dict, learner, replay):
-    """Write the learner's state and the played counters into the
-    checkpoint dict (JAX muzero.py:155-160 and :663-668): weights,
-    optimizer state, the last step's losses and lr, training_step,
-    num_played_games and num_played_steps."""
+def sync_state(checkpoint: dict, learner, replay):
+    """Write the learner's weights and optimizer state and the played
+    counters into the checkpoint dict (JAX muzero.py:155-160 _sync_checkpoint).
+    The losses stay as they are: the final persist (muzero.py:740-742) writes
+    only these."""
     checkpoint["weights"] = params_to_jax(learner.network)
     checkpoint["optimizer_state"] = optimizer_state_to_jax(learner)
+    checkpoint["num_played_games"] = replay.num_played_games
+    checkpoint["num_played_steps"] = replay.num_played_steps
+
+
+def sync_checkpoint(checkpoint: dict, learner, replay):
+    """The checkpoint-interval sync (JAX muzero.py:676-685): the last
+    step's losses and lr, training_step, then `sync_state`."""
     if learner.metrics is not None:
         for key in LOSS_KEYS:
             checkpoint[key] = float(learner.metrics[key])
         checkpoint["lr"] = float(learner.metrics["lr"])
     checkpoint["training_step"] = learner.training_step
-    checkpoint["num_played_games"] = replay.num_played_games
-    checkpoint["num_played_steps"] = replay.num_played_steps
+    sync_state(checkpoint, learner, replay)

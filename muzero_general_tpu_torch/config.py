@@ -50,7 +50,7 @@ class MuZeroConfig:
         self.support_size = 10
 
         # Residual network (models/resnet.py; downsample "resnet" and "CNN"
-        # raise NotImplementedError: ROADMAP module item 12)
+        # raise NotImplementedError: ROADMAP queue 1 item 4)
         self.downsample = False
         self.blocks = 1
         self.channels = 2
@@ -69,7 +69,7 @@ class MuZeroConfig:
         self.fc_value_layers = [16]
         self.fc_policy_layers = [16]
 
-        ### Training (the learner is not ported yet: ROADMAP module item 9)
+        ### Training
         self.results_path = None
         self.save_model = True
         self.training_steps = 10000
@@ -86,7 +86,7 @@ class MuZeroConfig:
         self.lr_decay_rate = 0.8
         self.lr_decay_steps = 1000
 
-        ### Replay buffer (not ported yet: ROADMAP module item 8)
+        ### Replay buffer
         self.replay_buffer_size = 500
         self.num_unroll_steps = 10
         self.td_steps = 50
@@ -97,7 +97,9 @@ class MuZeroConfig:
         self.use_last_model_value = True
         self.reanalyse_on_gpu = False  # reference parity; unused
 
-        ### Self-play / training ratio (override parity; unused, as in JAX)
+        ### Self-play / training ratio: the delays are unused, as in JAX; the
+        # training loop enforces `ratio` (a number or a callable of the
+        # played games) exactly (muzero.py).
         self.self_play_delay = 0
         self.training_delay = 0
         self.ratio = 1.5
@@ -107,9 +109,10 @@ class MuZeroConfig:
         self.parallel_games = 16
         # Used: moves per SelfPlayDriver.play call.
         self.selfplay_chunk_moves = 8
-        # Unused until the orchestrator is ported (ROADMAP module item 10).
+        # Used: loops between evaluation games against a scripted opponent.
         self.eval_interval_loops = 4
-        # Unused: the port runs on one device (ROADMAP module item 19).
+        # The port runs on one device: values above 1 raise in
+        # MuZero.train (ROADMAP queue 1 item 9).
         self.mesh_dp = None
         self.mesh_mp = 1
         # Used: the networks' compute dtype, read as the JAX package reads
@@ -117,13 +120,15 @@ class MuZeroConfig:
         # with float32 accumulation, anything else in float32
         # (models/network.py compute_dtype). Parameters stay float32.
         self.compute_dtype = "float32"
-        # Unused until reanalyse is ported (ROADMAP module item 10).
+        # Used: the training loop's reanalyse sweeps (muzero.py).
         self.reanalyse_interval = 20
         self.reanalyse_games_per_interval = 32
         self.reanalyse_chunk_positions = 1024
-        # Unused: the port has no profiler hook yet.
+        # Used: a torch.profiler trace of training loops 20-24, exported to
+        # this directory.
         self.profile_dir = None
-        # Unused until the learner is ported (ROADMAP module item 9).
+        # Used: M > 1 trains M steps a call (Learner.train_steps); the
+        # prefetcher assembles batches on a thread.
         self.fused_train_steps = 8
         self.batch_prefetch = True
         # Used: the staged search's descend/backprop CUDA kernels
@@ -156,19 +161,21 @@ class MuZeroConfig:
         # heads still emit float32), as in the JAX package; only with
         # fold_bn_inference (models/network.py activation_dtype).
         self.search_bf16_activations = False
-        # Gumbel search is not ported yet (ROADMAP module item 16); the
+        # Gumbel search is not ported yet (ROADMAP queue 1 item 6); the
         # driver raises NotImplementedError when it is on.
         self.use_gumbel_mcts = False
         self.gumbel_max_considered_actions = 16
         self.gumbel_c_visit = 50.0
         self.gumbel_c_scale = 1.0
-        # Unused: the host-env driver is not ported yet (ROADMAP item 17).
+        # Unused: the host-env driver is not ported yet (ROADMAP queue 1
+        # item 8).
         self.host_pipeline = False
-        # Unused: device replay is not ported yet (ROADMAP module item 18).
+        # Device replay is not ported yet: True raises in MuZero.train where
+        # the JAX package engages it (ROADMAP queue 1 item 7).
         self.device_replay = False
-        # Unused until the orchestrator is ported (ROADMAP module item 10).
+        # Used: numbered checkpoint snapshots every this many steps.
         self.snapshot_interval = None
-        # Unused until the learner is ported (ROADMAP module item 9).
+        # Used: the learner rematerializes each unroll step.
         self.remat_unroll = True
 
     def visit_softmax_temperature_fn(self, trained_steps):

@@ -8,6 +8,7 @@ are the same for both games (reference games/tictactoe.py, connect4.py).
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from muzero_general_tpu_torch.envs.core import TorchEnv
@@ -48,9 +49,11 @@ class BoardEnv(TorchEnv):
     def to_play(self, state):
         return torch.where(state.player == 1, 0, 1).to(torch.int32)
 
-    def random_legal_action(self, state, generator=None):
-        """A uniform draw over the legal actions (over all actions where none
-        is legal), as jax.random.categorical over a 0 / -inf mask."""
-        legal = self.legal_actions_mask(state)
-        u = torch.rand(legal.shape, generator=generator, device=self.device)
-        return torch.argmax(torch.where(legal, u, -1.0), dim=1)
+    def legal_actions(self, state):
+        """The legal actions of a one-game batch, as a numpy index array."""
+        return np.flatnonzero(self.legal_actions_mask(state)[0].cpu().numpy())
+
+    def render(self, state):
+        """The board of a one-game batch, top row first (reference
+        tictactoe.py:180, connect4.py:166)."""
+        print(state.board[0].cpu().numpy()[::-1])

@@ -123,3 +123,18 @@ class Connect4(BoardEnv):
             torch.where(candidate.any(1), act.gather(1, last_block)[:, 0],
                         random_action),
         ).to(torch.int32)
+
+    # ---- human-facing (JAX envs/connect4.py:175-191) ----------------------
+    def action_to_string(self, action):
+        return f"Play column {int(action) + 1}"
+
+    def human_to_action(self, state):
+        legal = self.legal_actions(state)
+        while True:
+            try:
+                action = int(input("Enter the column to play for the player: ")) - 1
+                if action in legal:
+                    return action
+            except (ValueError, EOFError):
+                pass
+            print("Wrong input, try again")

@@ -5,6 +5,10 @@ AbstractGame, games/abstract_game.py:4-105): the JAX env works on ONE
 instance and the driver vmaps it; here every method works on a batch of G
 games held as a NamedTuple of [G]-leading tensors on the env's device, and
 randomness comes from an explicit torch.Generator.
+
+The human-facing helpers (`render`, `action_to_string`, `human_to_action`;
+JAX envs/core.py:53-69) and the default expert (a uniform legal move) work
+on a one-game batch, as the evaluation loop (evaluate.py) holds it.
 """
 
 from typing import Any, NamedTuple, Optional, Tuple
@@ -57,6 +61,34 @@ class TorchEnv:
     @staticmethod
     def batch_size(state) -> int:
         return state[0].shape[0]
+
+    def random_legal_action(self, state, generator: Optional[torch.Generator] = None):
+        """A uniform draw over the legal actions [G] (over all actions where
+        none is legal), as jax.random.categorical over a 0 / -inf mask."""
+        legal = self.legal_actions_mask(state)
+        u = torch.rand(legal.shape, generator=generator, device=self.device)
+        return torch.argmax(torch.where(legal, u, -1.0), dim=1)
+
+    def expert_action(self, state, generator: Optional[torch.Generator] = None):
+        """Heuristic opponent [G] (reference expert_agent); default: a
+        uniform legal move (JAX envs/core.py:69-75)."""
+        return self.random_legal_action(state, generator)
+
+    # ---- human-facing, on a one-game batch (JAX envs/core.py:53-67) -----
+    def render(self, state):
+        print(self.observation(state)[0].cpu().numpy())
+
+    def action_to_string(self, action) -> str:
+        return str(action)
+
+    def human_to_action(self, state) -> int:
+        while True:
+            try:
+                a = int(input(f"Enter action (0-{self.num_actions - 1}): "))
+                if 0 <= a < self.num_actions:
+                    return a
+            except ValueError:
+                pass
 
 
 def where_state(mask: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:

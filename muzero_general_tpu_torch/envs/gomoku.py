@@ -3,8 +3,9 @@
 Parity with the reference env (reference games/gomoku.py:220-329): five in a
 row over the 252 length-5 windows; reward 1 on ANY episode end, draws
 included (a reference quirk kept for parity, gomoku.py:242-244); observation
-planes [board==+1, board==-1, player plane]; letter coordinates for actions.
-Rendering and human input are not ported.
+planes [board==+1, board==-1, player plane]; letter coordinates for actions,
+in rendering and human input too (JAX envs/gomoku.py:93-113). The expert is
+the default one, a uniform legal move, as in the JAX env.
 """
 
 from typing import Optional
@@ -63,8 +64,27 @@ class Gomoku(BoardEnv):
         done = state.done | done_now
         return BoardState(board, -state.player, done), reward, done
 
+    # ---- human-facing (JAX envs/gomoku.py:93-113) -------------------------
+    def render(self, state):
+        board = state.board[0].cpu().numpy()
+        markers = [chr(ord("A") + i) for i in range(SIZE)]
+        print("  " + " ".join(markers))
+        for row in range(SIZE):
+            cells = [".XO"[int(v) if v >= 0 else 2] for v in board[row]]
+            print(markers[row] + " " + " ".join(cells))
+
     @staticmethod
     def action_to_string(action):
         """Row letter then column letter, e.g. 13 -> "BC"."""
         x, y = int(action) // SIZE, int(action) % SIZE
         return chr(x + 65) + chr(y + 65)
+
+    def human_to_action(self, state):
+        legal = self.legal_actions(state)
+        while True:
+            s = input("Enter an action (e.g. AB for row A col B): ").strip().upper()
+            if len(s) == 2 and all("A" <= ch < chr(ord("A") + SIZE) for ch in s):
+                action = (ord(s[0]) - 65) * SIZE + (ord(s[1]) - 65)
+                if action in legal:
+                    return action
+            print("Wrong input, try again")

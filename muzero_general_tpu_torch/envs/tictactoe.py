@@ -65,3 +65,22 @@ class TicTacToe(BoardEnv):
             iswin.any(1), empty_cell.gather(1, win_idx)[:, 0],
             torch.where(is2.any(1), empty_cell.gather(1, block_idx)[:, 0], random_action),
         ).to(torch.int32)
+
+    # ---- human-facing (JAX envs/tictactoe.py:122-142) ---------------------
+    def action_to_string(self, action):
+        row = int(action) // 3 + 1
+        col = int(action) % 3 + 1
+        return f"Play row {row}, column {col}"
+
+    def human_to_action(self, state):
+        legal = self.legal_actions(state)
+        while True:
+            try:
+                row = int(input("Enter the row (1, 2 or 3) to play: "))
+                col = int(input("Enter the column (1, 2 or 3) to play: "))
+                choice = (row - 1) * 3 + (col - 1)
+                if choice in legal and 1 <= row <= 3 and 1 <= col <= 3:
+                    return choice
+            except (ValueError, EOFError):
+                pass
+            print("Wrong input, try again")

@@ -61,6 +61,12 @@ class MetricsLogger:
         self._jsonl.flush()
         self.counter += 1
 
+    def write(self, record: dict):
+        """One extra JSON line in metrics.jsonl (the training loop's
+        phase_time_s line, JAX muzero.py:711-714)."""
+        self._jsonl.write(json.dumps(record) + "\n")
+        self._jsonl.flush()
+
     def close(self):
         self.writer.close()
         self._jsonl.close()

@@ -21,7 +21,7 @@ skip adds, hidden normalization and hidden states in `act_dtype` (bfloat16
 when config.search_bf16_activations is on).
 
 Only `downsample=False` is ported: "resnet" and "CNN" (the atari-sized
-downsamplers) raise NotImplementedError (ROADMAP module item 12).
+downsamplers) raise NotImplementedError (ROADMAP queue 1 item 4).
 """
 
 from typing import Sequence

@@ -25,7 +25,7 @@ temperature 0 inside the same batch and their episodes come back in
 stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
 
 Not ported yet, and refused with NotImplementedError: Gumbel search (ROADMAP
-module item 16). The mesh/dp sharding of lanes (item 19) is not ported either.
+queue 1 item 6). The mesh/dp sharding of lanes (item 9) is not ported either.
 """
 
 import logging
@@ -97,7 +97,8 @@ class SelfPlayDriver:
             raise ValueError(f"env is on {env.device}, driver on {self.device}")
         if config.use_gumbel_mcts:
             raise NotImplementedError(
-                "Gumbel search is not ported yet (ROADMAP module item 16)"
+                "Gumbel search is not ported yet (ROADMAP queue 1 item 6; module item 16 "
+                "in the older numbering)"
             )
         self.env = env
         self.network = network

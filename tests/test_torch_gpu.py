@@ -1419,3 +1419,49 @@ def test_learner_on_the_card_matches_the_cpu(cuda, network, optimizer):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5, msg=key)
         else:
             torch.testing.assert_close(got, want, rtol=0, atol=atol, msg=key)
+
+
+@pytest.mark.parametrize("game", ["tictactoe", "cartpole"])
+def test_eval_game_on_the_card_matches_the_cpu(cuda, game):
+    """evaluate.play_against_opponent, the B = 1 search (the plain-op route
+    on any device: no lane block of the kernels fits one lane), on the card
+    against the CPU from the same weights, with first-index ties and no root
+    noise: tictactoe against the random opponent (numpy draws on both),
+    cartpole against itself from one start state. Actions, rewards and
+    visits exact; root values within 5e-5."""
+    from muzero_general_tpu_torch import evaluate
+    from muzero_general_tpu_torch.config import load_game_module
+
+    module = load_game_module(game)
+    cfg = module.MuZeroConfig()
+    cfg.num_simulations, cfg.root_exploration_fraction, cfg.max_moves = 16, 0.0, 40
+    if game == "tictactoe":
+        cfg.channels, cfg.reduced_channels_reward = 8, 2
+        cfg.reduced_channels_value = cfg.reduced_channels_policy = 2
+    from_config = mcts_ops.SearchSpec.from_config.__func__
+
+    def deterministic(cls, *args, **kwargs):
+        spec = from_config(cls, *args, **kwargs)
+        assert not spec.use_kernels and not spec.use_stream
+        return spec._replace(deterministic_tie_break=True)
+
+    games = []
+    original = mcts_ops.SearchSpec.from_config
+    mcts_ops.SearchSpec.from_config = classmethod(deterministic)
+    try:
+        cpu_net = MuZeroNetwork(cfg, device="cpu", seed=4)
+        for dev in ("cpu", cuda):
+            net = MuZeroNetwork(cfg, device=dev, seed=4)
+            net.load_state_dict(cpu_net.state_dict())
+            env = module.make_env(device=dev)
+            opponent = "random" if game == "tictactoe" else "self"
+            games.append(evaluate.play_against_opponent(
+                env, net, cfg, opponent, 1, seed=3, start=[0.01, -0.02, 0.03, 0.0]
+                if game == "cartpole" else None))
+    finally:
+        mcts_ops.SearchSpec.from_config = original
+    cpu, gpu = games
+    assert len(gpu) == len(cpu) >= 5
+    for field in ("actions", "rewards", "to_play", "child_visits"):
+        np.testing.assert_array_equal(getattr(gpu, field), getattr(cpu, field), err_msg=field)
+    np.testing.assert_allclose(gpu.root_values, cpu.root_values, rtol=0, atol=5e-5)
