@@ -152,9 +152,34 @@ In order, it:
       search on the plain-op route takes seconds on the card);
    e. `python -m muzero_general_tpu_torch cartpole '{"training_steps": 16,
       ...}'` in a subprocess: rc 0 and a checkpoint written;
-14. prints one {"kernels": [...]} JSON line (the fused search's entry with
+14. the remaining device games and the diagnosis (diagnose.py):
+   a. one SelfPlayDriver chunk each at the shipped widths, seeded random
+      weights: gridworld (FC, 32 lanes x 20 sims, the fused kernel),
+      twentyone (2 x 32 ResNet, 64 lanes x 21 sims) and breakout (2 x 16
+      ResNet on 96 x 96 frames downsampled to 6 x 6, 8 lanes x 30 sims), the
+      last two on the planar kernels; every launch of that chunk held
+      against its plain version (CheckedLaunches), then 3 timed chunks
+      (env-steps/s, ms a move, launches); breakout's initial inference (the
+      downsample pyramid) and recurrent inference, device ms by graph replay;
+   b. the breakout net from one seed, random batch norms, on the card
+      against the CPU at the driver's observations: f32 and bf16 (bf16
+      activations when folded), unfolded and folded (NET_F32_TOL,
+      NET_BF16_TOL);
+   c. MuZero(game, {"training_steps": 16}).train() then test(num_tests=1)
+      for the three games at their shipped widths (breakout's max_moves cut
+      to BREAKOUT_MAX_MOVES): launches, the phase split, gridworld's test()
+      searches at G = 1 held against search_plain, the others' B = 1 search
+      on the plain-op route (no launch); one breakout learner step from
+      that run's checkpoint and replay buffer, card against CPU (LEARN_F32);
+   d. DiagnoseModel on gridworld's trained checkpoint and the shipped
+      connect4 one: compare_virtual_with_real_trajectories, then the plots
+      into a temporary directory where matplotlib, seaborn and graphviz are
+      installed; the search's route (plain-op at B = 1) and no launch;
+15. prints one {"kernels": [...]} JSON line (the fused search's entry with
    its train() and test() launches, the planar kernels' with connect4's
-   train() launches), then ends with {"ok": true, "device": {...}}.
+   train() launches, each with the launches of phase 14's games under
+   "<game>_selfplay_launches", "<game>_train_launches" and
+   "<game>_test_launches"), then ends with {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
 phase fails. It imports nothing of JAX.
@@ -353,10 +378,11 @@ def search_work(B, A, E, num_sims, weights):
     return flops, nbytes
 
 
-def check_equal(name, got, want, legal, num_sims):
+def check_equal(name, got, want, legal, num_sims, quiet=False):
     """Fail unless (visits, value, depth) equal the plain version's: visits
     and depth exactly, values within VALUE_TOL; every root's visits sum to
-    num_sims and illegal actions get none. Returns max |dvalue|."""
+    num_sims and illegal actions get none. Returns max |dvalue| (logged
+    unless `quiet`)."""
     torch.cuda.synchronize()
     visits, value, depth = (t.cpu() for t in got)
     p_visits, p_value, p_depth = (t.cpu() for t in want)
@@ -377,8 +403,9 @@ def check_equal(name, got, want, legal, num_sims):
     if not bool(torch.isfinite(value).all()):
         fail(f"{name}: non-finite root value")
     max_err = float(err.max())
-    log(f"[compare] {name}: B={visits.shape[0]} A={visits.shape[1]}: visits and "
-        f"depth equal, max |dvalue| = {max_err!r}, max depth {int(depth.max())}")
+    if not quiet:
+        log(f"[compare] {name}: B={visits.shape[0]} A={visits.shape[1]}: visits and "
+            f"depth equal, max |dvalue| = {max_err!r}, max depth {int(depth.max())}")
     return max_err
 
 
@@ -2454,6 +2481,85 @@ def learner_phase(cart_replay, c4_replay):
 # ---------------------------------------------------------------------------
 
 
+class CheckedLaunches:
+    """Within `with`, each launch of the search kernels of phases 13 and 14
+    (the fused search, the planar descent, the backprop), up to
+    `check_first` of each, is held against its plain version on copies of
+    the same inputs: the fused search's visits and depth exactly and values
+    within VALUE_TOL (check_equal), the tree kernels' outputs and updated
+    slabs bit for bit. The wrappers count their launches on the module
+    attribute they are called through, so inside `with` they count on the
+    checked versions (launches()); the plain versions launch no kernel."""
+
+    NAMES = ("mcts_fused_search", "descend_planar", "backprop")
+
+    def __init__(self, label, check_first=None, quiet=True):
+        self.label, self.check_first, self.quiet = label, check_first, quiet
+        self.errors = {name: [] for name in self.NAMES}
+
+    def _due(self, name):
+        return self.check_first is None or len(self.errors[name]) < self.check_first
+
+    def __enter__(self):
+        from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
+
+        self.saved = (mcts_fused.search, mcts_kernels.descend_planar, mcts_kernels.backprop)
+        search, descend, backprop = self.saved
+        errors, label = self.errors, self.label
+
+        def checked_search(*args, **kw):
+            got = search(*args, **kw)
+            if self._due("mcts_fused_search"):
+                want = mcts_fused.search_plain(*args, **kw)
+                errors["mcts_fused_search"].append(check_equal(
+                    f"{label}, fused search launch {len(errors['mcts_fused_search'])}", got,
+                    want, args[4] != 0, kw["num_sims"], quiet=self.quiet))
+            return got
+
+        def checked_descend(*args, **kw):
+            if kw.get("mark_visits"):
+                fail(f"{label}: a marking descent on a K = 1 path")
+            got = descend(*args, **kw)
+            if self._due("descend_planar"):
+                want = mcts_kernels.descend_planar_plain(*args, **kw)
+                errors["descend_planar"].append(check_equal_tensors(
+                    f"{label}, descend_planar launch {len(errors['descend_planar'])}", got,
+                    want, ("parent", "action", "leaf_depth", "path_nodes", "path_actions")))
+            return got
+
+        def checked_backprop(*args, **kw):
+            due = self._due("backprop")
+            twins = [a.clone() if isinstance(a, torch.Tensor) else a for a in args] if due else None
+            got = backprop(*args, **kw)
+            if due:
+                want = mcts_kernels.backprop_plain(*twins, **kw)
+                errors["backprop"].append(check_equal_tensors(
+                    f"{label}, backprop launch {len(errors['backprop'])}", got, want,
+                    ("children_visit", "children_vsum", "root_visit", "root_vsum",
+                     "min_value", "max_value")))
+            return got
+
+        checked_search.launches = 0
+        checked_descend.launches = checked_descend.marked_launches = 0
+        checked_backprop.launches = checked_backprop.pre_marked_launches = 0
+        self.fns = dict(zip(self.NAMES, (checked_search, checked_descend, checked_backprop)))
+        mcts_fused.search, mcts_kernels.descend_planar, mcts_kernels.backprop = (
+            checked_search, checked_descend, checked_backprop)
+        return self
+
+    def __exit__(self, *exc):
+        from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
+
+        mcts_fused.search, mcts_kernels.descend_planar, mcts_kernels.backprop = self.saved
+
+    def launches(self):
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+    def checked(self):
+        """{kernel: (launches checked, max |difference|)} of those checked."""
+        return {name: (len(e), max(e)) for name, e in self.errors.items() if e}
+
+
 def metrics_lines(path):
     lines = [json.loads(x) for x in (path / "metrics.jsonl").read_text().splitlines()]
     return [x for x in lines if "total_reward" in x]
@@ -2478,27 +2584,9 @@ def test_checked(mz, num_tests, check_first=6, **kwargs):
     """mz.test(...) with the first `check_first` fused-search launches held
     against search_plain on the same inputs (visits and depth exact, values
     within VALUE_TOL). Returns (mean reward, kernel launches, checks)."""
-    from muzero_general_tpu_torch.ops import mcts_fused
-
-    kernel = mcts_fused.search
-    checks = []
-
-    def search(*args, **kw):
-        got = kernel(*args, **kw)
-        if len(checks) < check_first:
-            want = mcts_fused.search_plain(*args, **kw)
-            checks.append(check_equal(f"test() at G = 1, move {len(checks)}", got, want,
-                                      args[4] != 0, kw["num_sims"]))
-        return got
-
-    # The kernel's wrapper counts its launches on the module's `search`.
-    search.launches = 0
-    mcts_fused.search = search
-    try:
+    with CheckedLaunches("test() at G = 1", check_first=check_first, quiet=False) as checked:
         result = mz.test(num_tests=num_tests, **kwargs)
-    finally:
-        mcts_fused.search = kernel
-    return result, search.launches, checks
+    return result, checked.launches()["mcts_fused_search"], checked.errors["mcts_fused_search"]
 
 
 def orchestration_phase(kernels):
@@ -2629,6 +2717,281 @@ def orchestration_phase(kernels):
     return {"train_s": train_s, "test_reward": result, "connect4_wins": wins}
 
 
+# ---------------------------------------------------------------------------
+# The remaining device games: gridworld (FC, the fused search), twentyone
+# and breakout with the downsampled ResNet (the planar kernels), and the
+# diagnosis (diagnose.py)
+# ---------------------------------------------------------------------------
+
+# A breakout game of the shipped config lasts up to 2,500 moves; phase 14c
+# cuts max_moves (a depth cut) so that its games, and test()'s B = 1 game
+# (~14 ms a simulation, host-bound), end inside the phase.
+BREAKOUT_MAX_MOVES = 32
+# The breakout net on the card against the CPU, from the same weights and
+# observations. float32: cuDNN and oneDNN sum the 96 x 96 pyramid's convs in
+# other orders (fan-in up to 16 x 9), so outputs agree to float32 rounding
+# through 15 convs and a min-max normalize: logits within NET_F32_TOL of
+# max(1, max |logit|), hidden states (in [0, 1]) within NET_F32_TOL.
+# bfloat16: each device rounds its own bf16 products' partial sums, which
+# can flip a rounding of a bf16 activation (2^-8 relative) and carry it
+# through the net: NET_BF16_TOL, four bf16 ulps near 1.
+NET_F32_TOL = 1e-4
+NET_BF16_TOL = 1.6e-2
+
+
+def randomize_batch_norms(net, seed):
+    """Seeded random batch-norm affine parameters and running statistics,
+    so the BN fold is not the identity."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in net.modules():
+            if isinstance(module, torch.nn.BatchNorm2d):
+                c = module.num_features
+                for t, lo, hi in ((module.weight, 0.5, 1.5), (module.running_var, 0.5, 1.5),
+                                  (module.bias, -0.2, 0.2), (module.running_mean, -0.2, 0.2)):
+                    t.copy_(torch.rand(c, generator=gen) * (hi - lo) + lo)
+    return net
+
+
+def compare_nets(label, card_out, cpu_out, tol):
+    """Fail unless the card's (value, reward, policy, hidden) equal the
+    CPU's within tol (logits relative to max(1, max |logit|)). Returns the
+    largest difference of each."""
+    errs = {}
+    for name, got, want in zip(("value", "reward", "policy", "hidden"), card_out, cpu_out):
+        got, want = got.float().cpu(), want.float()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{label}: {name} {tuple(got.shape)} not finite or not the CPU's shape")
+        scale = 1.0 if name == "hidden" else max(1.0, float(want.abs().max()))
+        errs[name] = float((got - want).abs().max())
+        if errs[name] > tol * scale:
+            fail(f"{label}: {name} differs from the CPU's by {errs[name]!r} (tol {tol} x "
+                 f"{scale:.4g})")
+    return errs
+
+
+def remaining_games_phase(kernels):
+    """Phase 14: the remaining device games and the diagnosis, through the
+    user's entry points. Adds each game's launches to the kernels' entries."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from muzero_general_tpu_torch import MuZero
+    from muzero_general_tpu_torch.checkpoint import load_replay_buffer
+    from muzero_general_tpu_torch.config import load_game_module
+    from muzero_general_tpu_torch.diagnose import DiagnoseModel
+    from muzero_general_tpu_torch.models import MuZeroNetwork, activation_dtype, fold_bn
+    from muzero_general_tpu_torch.models import params_from_jax
+    from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
+    from muzero_general_tpu_torch.replay import ReplayBuffer
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+
+    t_phase = time.perf_counter()
+    root = REPO / "results" / "chip_smoke" / "games"
+    shutil.rmtree(root, ignore_errors=True)
+    entries = {k["name"]: k for k in kernels}
+    path_kernels = {"fused": ("mcts_fused_search",), "staged": ("descend_planar", "backprop")}
+
+    def zero_counts():
+        mcts_fused.search.launches = 0
+        mcts_kernels.descend_planar.launches = 0
+        mcts_kernels.backprop.launches = 0
+
+    def counts():
+        return {"mcts_fused_search": mcts_fused.search.launches,
+                "descend_planar": mcts_kernels.descend_planar.launches,
+                "backprop": mcts_kernels.backprop.launches}
+
+    def add_launches(game, stage, launched):
+        for name, n in launched.items():
+            if n:
+                entries[name][f"{game}_{stage}_launches"] = n
+
+    # ---- 14a. self-play at the shipped widths -------------------------------
+    folded_breakout = None
+    for game, route in (("gridworld", "fused"), ("twentyone", "staged"),
+                        ("breakout", "staged")):
+        module = load_game_module(game)
+        cfg = module.MuZeroConfig()
+        net = MuZeroNetwork(cfg, seed=0)
+        if game == "breakout":
+            randomize_batch_norms(net, 1)
+        driver = SelfPlayDriver(module.make_env(), net, cfg, seed=0)
+        if driver.search_route != route or (route == "staged" and not driver.spec.use_kernels):
+            fail(f"14a {game}: route {driver.search_route}, kernels {driver.spec.use_kernels}")
+        G, K, S = driver.G, cfg.selfplay_chunk_moves, cfg.num_simulations
+        # One chunk with every launch held against the plain version, then
+        # timed chunks (timed_play: a warm-up and 2), unchecked.
+        with CheckedLaunches(f"{game} self-play") as checked:
+            driver.play(temperature=1.0)
+        zero_counts()
+        chunk_s, loop_ms, stats, _ = timed_play(driver, 2)
+        launched = {name: checked.launches()[name] + counts()[name]
+                    for name in path_kernels[route]}
+        moves = 4 * K
+        per_move = 1 if route == "fused" else S
+        for name, n in launched.items():
+            if n != per_move * moves:
+                fail(f"14a {game}: {name} launched {n} times for {moves} moves")
+        done = checked.checked()
+        if set(done) != set(path_kernels[route]):
+            fail(f"14a {game}: checked {sorted(done)}")
+        add_launches(game, "selfplay", launched)
+        move_ms = chunk_s * 1e3 / K
+        log(f"[{game}] SelfPlayDriver.play, shipped width: {G} lanes x {S} sims, {K} moves a "
+            f"chunk, {route} route: {chunk_s * 1e3:.2f} ms/chunk, "
+            f"{stats['env_steps'] / chunk_s:.1f} env-steps/s, {move_ms:.3f} ms/move (move "
+            f"loop {loop_ms:.3f}); launches {launched} over {moves} moves; each launch of "
+            f"the first chunk against its plain version: " + ", ".join(
+                f"{name} {n} launches equal (max |d| {e!r})" for name, (n, e) in done.items()))
+        if game == "breakout":
+            folded_breakout = fold_bn(net, activation_dtype(cfg))
+            rec_ms, init_ms, rec_call = network_ms(folded_breakout, driver)
+            log(f"[breakout] network, folded f32, {G} lanes: initial inference (the 96 x 96 "
+                f"downsample pyramid) {init_ms:.4f} ms, recurrent {rec_ms:.4f} ms (device "
+                f"time, CUDA graph replay), {rec_call:.4f} ms per recurrent call from Python; "
+                f"per move {S} x recurrent + initial = {S * rec_ms + init_ms:.3f} ms of "
+                f"{loop_ms:.3f}")
+            breakout_obs = driver.env.observation(driver._carry.env_state)
+    log(f"[done] 14a after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 14b. the breakout net on the card against the CPU ------------------
+    actions = torch.arange(breakout_obs.shape[0], device="cuda") % 4
+    for dtype, tol in (("float32", NET_F32_TOL), ("bfloat16", NET_BF16_TOL)):
+        cfg = load_game_module("breakout").MuZeroConfig()
+        cfg.compute_dtype = dtype
+        cfg.search_bf16_activations = dtype == "bfloat16"
+        card = randomize_batch_norms(MuZeroNetwork(cfg, seed=2), 3)
+        cpu = MuZeroNetwork(cfg, device="cpu", seed=2)
+        cpu.load_state_dict(card.state_dict())
+        for variant, a, b in (("unfolded", card, cpu),
+                              ("folded", fold_bn(card, activation_dtype(cfg)),
+                               fold_bn(cpu, activation_dtype(cfg)))):
+            with torch.no_grad():
+                got = a.initial_inference(breakout_obs)
+                want = b.initial_inference(breakout_obs.cpu())
+                e0 = compare_nets(f"14b breakout {dtype} {variant} initial", got, want, tol)
+                got = a.recurrent_inference(want[3].to("cuda"), actions)
+                want = b.recurrent_inference(want[3], actions.cpu())
+                e1 = compare_nets(f"14b breakout {dtype} {variant} recurrent", got, want, tol)
+            log(f"[breakout net] {dtype} {variant} (hidden {tuple(got[3].shape)} "
+                f"{got[3].dtype}), card vs CPU at {breakout_obs.shape[0]} observations: "
+                f"initial {e0}, recurrent {e1} (tol {tol})")
+
+    # ---- 14c. MuZero(game).train() then test() -------------------------------
+    trained = {}
+    for game, route, overrides in (
+            ("gridworld", "fused", {}), ("twentyone", "staged", {}),
+            ("breakout", "staged", {"max_moves": BREAKOUT_MAX_MOVES})):
+        mz = MuZero(game, dict(overrides, training_steps=16,
+                               results_path=str(root / game)))
+        cfg = mz.config
+        zero_counts()
+        ck, train_s = timed_train(mz)
+        launched = {name: counts()[name] for name in path_kernels[route]}
+        lines = metrics_lines(cfg.results_path)
+        if ck["training_step"] != 16 or not all(launched.values()) or not lines:
+            fail(f"14c {game}: train() ended at step {ck['training_step']}, launches "
+                 f"{launched}, {len(lines)} logged loops")
+        if not all(np.isfinite(ck[k]) for k in ("total_loss", "value_loss", "policy_loss")):
+            fail(f"14c {game}: non-finite losses")
+        add_launches(game, "train", launched)
+        cut = f"; max_moves cut to {BREAKOUT_MAX_MOVES} (depth cut)" if overrides else ""
+        log(f"[muzero {game}] train() 16 steps at the shipped width ({cfg.parallel_games} "
+            f"lanes x {cfg.num_simulations} sims, batch {cfg.batch_size}, unroll "
+            f"{cfg.num_unroll_steps}{cut}) in {train_s:.2f} s: {ck['num_played_games']} "
+            f"games, {ck['num_played_steps']} steps, {ck['num_played_steps'] / train_s:.1f} "
+            f"env-steps/s; launches {launched}; loss {ck['total_loss']:.4f} (that of the "
+            f"last checkpoint interval, every {cfg.checkpoint_interval} steps; 0 before one)")
+        log(f"[muzero {game}] phase split: {phase_split(mz.phase_time, train_s)}")
+        zero_counts()
+        t0 = time.perf_counter()
+        if route == "fused":
+            result, test_launches, errs = test_checked(mz, num_tests=1)
+            if not test_launches or not errs:
+                fail(f"14c {game}: test() did not launch the fused search")
+            entries["mcts_fused_search"][f"{game}_test_launches"] = test_launches
+            how = (f"{test_launches} fused-search launches at G = 1, the first {len(errs)} "
+                   f"equal to search_plain (max |dvalue| {max(errs)!r})")
+        else:
+            result = mz.test(num_tests=1)
+            if any(counts().values()):
+                fail(f"14c {game}: test() at G = 1 launched {counts()}")
+            how = "the B = 1 search on the plain-op route (the block gate closes at 1 lane)"
+        log(f"[muzero {game}] test(num_tests=1): reward {result:.3f} in "
+            f"{time.perf_counter() - t0:.2f} s, {how}")
+        trained[game] = mz
+
+    # One breakout learner step on the card against the CPU's, from 14c's
+    # checkpoint, optimizer state and replay buffer.
+    mz = trained["breakout"]
+    saved = load_replay_buffer(mz.config.results_path / "replay_buffer.pkl")
+    buf = ReplayBuffer(mz.config, saved["buffer"], saved["num_played_games"],
+                       saved["num_played_steps"])
+    buf.rng = np.random.default_rng(4)
+    _, stacked = stacked_batches(buf, 1)
+    card, cpu = learner_pair(mz.config, mz.config.results_path / "model.checkpoint")
+    compare_learners("breakout learner", card, cpu, stacked, **LEARN_F32, share=0.99)
+    log(f"[done] 14c after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 14d. the diagnosis ---------------------------------------------------
+    # The plots need matplotlib and seaborn (the tree graphviz); where this
+    # machine lacks them the trajectories are compared without the plots,
+    # which the CPU tests draw (tests/test_torch_diagnose.py).
+    plotting = all(importlib.util.find_spec(m) for m in ("matplotlib", "seaborn"))
+    tree_plot = importlib.util.find_spec("graphviz") is not None
+    for game, path, horizon in (
+            ("gridworld", trained["gridworld"].config.results_path / "model.checkpoint", 5),
+            ("connect4", C4_CHECKPOINT, 2)):
+        mz = MuZero(game, {"results_path": str(root / f"diagnose_{game}")})
+        mz.load_model(checkpoint_path=path)
+        mz.network.load_state_dict(params_from_jax(mz.checkpoint["weights"]))
+        dm = DiagnoseModel(mz.network, mz.config)
+        route = ("kernels" if dm.spec.use_kernels else "stream" if dm.spec.use_stream
+                 else "plain-op")
+        zero_counts()
+        t0 = time.perf_counter()
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)  # plot_mcts writes mcts.pdf (or mcts.gv) here
+            try:
+                virtual, real, divergence = dm.compare_virtual_with_real_trajectories(
+                    mz.make_env(), horizon, plot=False)
+                if plotting:
+                    for info in (virtual, real):
+                        info.plot_trajectory(save_dir=tmp, show=False)
+                    dm.close_all()
+            finally:
+                os.chdir(cwd)
+            written = sorted(p.name for p in pathlib.Path(tmp).iterdir())
+        if len(virtual.action_history) != horizon or not real.mcts_depth:
+            fail(f"14d {game}: virtual actions {virtual.action_history}, real depths "
+                 f"{real.mcts_depth}")
+        values = virtual.root_value_after_planning + real.root_value_after_planning
+        if not all(np.isfinite(values)):
+            fail(f"14d {game}: non-finite root values")
+        if (tree_plot and not any(name.startswith("mcts") for name in written)
+                or plotting and sum(name.endswith(".png") for name in written) < 10):
+            fail(f"14d {game}: the plots wrote {written}")
+        if any(counts().values()):
+            fail(f"14d {game}: the B = 1 diagnosis searches launched {counts()}")
+        log(f"[diagnose {game}] compare_virtual_with_real_trajectories(horizon={horizon}) "
+            f"in {time.perf_counter() - t0:.2f} s" + (" with the plots" if written else "")
+            + ", its searches on the "
+            f"{route} route (B = 1): virtual actions {virtual.action_history}, real "
+            f"{real.action_history}, divergence {divergence}, depths {virtual.mcts_depth} / "
+            f"{real.mcts_depth}; " + (f"{len(written)} plot files written" if written else
+                                      "no plots: matplotlib, seaborn and graphviz are not "
+                                      "installed on this machine"))
+    seconds = time.perf_counter() - t_phase
+    log(f"[done] phase 14 in {seconds:.1f} s")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2668,6 +3031,8 @@ def main():
     fused_entry["learn_loop_launches"] = learner_phase(cart_replay, c4_replay)
     log(f"[done] learner after {time.perf_counter() - t_start:.1f} s")
     orchestration_phase(kernels)
+    log(f"[done] orchestration after {time.perf_counter() - t_start:.1f} s")
+    remaining_games_phase(kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -49,9 +49,8 @@ class MuZeroConfig:
         self.network = "fullyconnected"  # "resnet" / "fullyconnected"
         self.support_size = 10
 
-        # Residual network (models/resnet.py; downsample "resnet" and "CNN"
-        # raise NotImplementedError: ROADMAP queue 1 item 4)
-        self.downsample = False
+        # Residual network (models/resnet.py)
+        self.downsample = False  # False | "resnet" | "CNN"
         self.blocks = 1
         self.channels = 2
         self.reduced_channels_reward = 2

@@ -1,13 +1,17 @@
 """Per-game plugin modules: each exposes `MuZeroConfig` and `make_env()`.
 
-Counterpart of muzero_general_tpu/games; only the games whose envs are
-ported are listed (the rest are ROADMAP queue 1 item 4).
+Counterpart of muzero_general_tpu/games, in its order; only the games whose
+envs are ported are listed (atari, lunarlander and spiel run host envs:
+ROADMAP queue 1 item 8).
 """
 
 AVAILABLE_GAMES = [
     "cartpole",
-    "connect4",
-    "gomoku",
     "simple_grid",
     "tictactoe",
+    "connect4",
+    "gomoku",
+    "twentyone",
+    "gridworld",
+    "breakout",
 ]

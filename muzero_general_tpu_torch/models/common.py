@@ -95,16 +95,18 @@ class FullPrecision:
 
 
 class Conv(nn.Conv2d):
-    """SAME-padded stride-1 conv, the JAX package's TorchConv: its init,
-    U(+-1/sqrt(fan_in)) for kernel and bias, is nn.Conv2d's default, and its
-    precision is Dense's (`dtype` for the product, `out_dtype` for the
-    output and the bias add)."""
+    """The JAX package's TorchConv: its init, U(+-1/sqrt(fan_in)) for kernel
+    and bias, is nn.Conv2d's default, and its precision is Dense's (`dtype`
+    for the product, `out_dtype` for the output and the bias add). Padding
+    is symmetric, `padding` cells a side (default SAME at stride 1)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  bias: bool, dtype: torch.dtype = torch.float32,
-                 out_dtype: torch.dtype = torch.float32):
-        super().__init__(in_channels, out_channels, kernel_size,
-                         padding=kernel_size // 2, bias=bias)
+                 out_dtype: torch.dtype = torch.float32, stride: int = 1,
+                 padding: Optional[int] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=kernel_size // 2 if padding is None else padding,
+                         bias=bias)
         self.compute_dtype = dtype
         self.out_dtype = out_dtype
 
@@ -119,8 +121,10 @@ class Conv(nn.Conv2d):
 
 def conv(in_channels: int, out_channels: int, kernel_size: int, bias: bool,
          dtype: torch.dtype = torch.float32,
-         out_dtype: torch.dtype = torch.float32) -> Conv:
-    return Conv(in_channels, out_channels, kernel_size, bias, dtype, out_dtype)
+         out_dtype: torch.dtype = torch.float32, stride: int = 1,
+         padding: Optional[int] = None) -> Conv:
+    return Conv(in_channels, out_channels, kernel_size, bias, dtype, out_dtype, stride,
+                padding)
 
 
 def conv3x3(in_channels: int, out_channels: int, bias: bool = False,

@@ -20,10 +20,15 @@ norms stay float32. The folded variant runs its conv pipeline, its ReLUs,
 skip adds, hidden normalization and hidden states in `act_dtype` (bfloat16
 when config.search_bf16_activations is on).
 
-Only `downsample=False` is ported: "resnet" and "CNN" (the atari-sized
-downsamplers) raise NotImplementedError (ROADMAP queue 1 item 4).
+`downsample` is False, "resnet" (DownSampleResnet: strided convs, residual
+blocks and average pools, /16) or "CNN" (DownsampleCNN: a strided conv,
+max pools, an adaptive average pool); with either, the hidden maps are
+ceil(H / 16) x ceil(W / 16) and the heads' flatten sizes follow. The
+pyramid's pools and convs are plain PyTorch ops under FullPrecision, as the
+JAX package computes them in XLA, not in a Pallas kernel.
 """
 
+import math
 from typing import Sequence
 
 import torch
@@ -47,27 +52,123 @@ def _flatten_hwc(x):
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
+def avg_pool(x):
+    """flax avg_pool((3, 3), strides (2, 2), padding ((1, 1), (1, 1))) on
+    NCHW: the padded cells count in the mean. flax sums a window's nine
+    cells in the activations' dtype, one add at a time in window order,
+    then divides by 9; so does this. (In bfloat16, F.avg_pool2d sums in
+    float and rounds once, which differs from flax in the last bits.)"""
+    h, w = (x.shape[2] - 1) // 2 + 1, (x.shape[3] - 1) // 2 + 1
+    x = F.pad(x, (1, 1, 1, 1))
+    total = None
+    for i in range(3):
+        for j in range(3):
+            cell = x[:, :, i:i + 2 * h - 1:2, j:j + 2 * w - 1:2]
+            total = cell if total is None else total + cell
+    return total / 9
+
+
+class DownSampleResnet(nn.Module):
+    """Strided conv / residual block / average pool pyramid, /16 spatial
+    (reference models.py:233-275; JAX models/resnet.py:43-80). Its two
+    stride-2 convs have no bias and no batch norm, so the BN fold leaves
+    them as they are; the residual blocks fold."""
+
+    def __init__(self, in_channels: int, out_channels: int, fold_bn: bool = False,
+                 dtype=torch.float32, act_dtype=torch.float32):
+        super().__init__()
+        half = out_channels // 2
+        self.TorchConv_0 = conv(in_channels, half, 3, False, dtype, stride=2, padding=1)
+        self.TorchConv_1 = conv(half, out_channels, 3, False, dtype, stride=2, padding=1)
+        for i in range(8):
+            self.add_module(f"ResidualBlock_{i}", ResidualBlock(
+                half if i < 2 else out_channels, fold_bn, dtype, act_dtype))
+
+    def forward(self, x):
+        blocks = [getattr(self, f"ResidualBlock_{i}") for i in range(8)]
+        x = self.TorchConv_0(x)
+        for block in blocks[:2]:
+            x = block(x)
+        x = self.TorchConv_1(x)
+        for block in blocks[2:5]:
+            x = block(x)
+        x = avg_pool(x)
+        for block in blocks[5:]:
+            x = block(x)
+        return avg_pool(x)
+
+
+class DownsampleCNN(nn.Module):
+    """The lighter conv / max pool downsampler (reference models.py:278-297;
+    JAX models/resnet.py:83-105): a (2 * h_w[0])-wide stride-4 conv, ReLU,
+    a 3x3 stride-2 max pool (no padding), a 5x5 conv, ReLU, the same pool,
+    then an adaptive average pool to h_w. It has no batch norm."""
+
+    def __init__(self, in_channels: int, out_channels: int, h_w: Sequence[int],
+                 dtype=torch.float32):
+        super().__init__()
+        mid = (in_channels + out_channels) // 2
+        self.h_w = tuple(h_w)
+        self.TorchConv_0 = conv(in_channels, mid, self.h_w[0] * 2, True, dtype, stride=4,
+                                padding=2)
+        self.TorchConv_1 = conv(mid, out_channels, 5, True, dtype, padding=2)
+
+    def forward(self, x):
+        x = F.max_pool2d(F.relu(self.TorchConv_0(x)), 3, stride=2)
+        x = F.max_pool2d(F.relu(self.TorchConv_1(x)), 3, stride=2)
+        # The JAX package's adaptive_avg_pool (models/resnet.py:27-40) takes
+        # window i over rows floor(i * h / out_h) to ceil((i + 1) * h / out_h),
+        # as torch's adaptive pool does.
+        return F.adaptive_avg_pool2d(x, self.h_w)
+
+
+def hidden_hw(observation_shape, downsample):
+    """The hidden maps' (h, w): the observation's, or ceil(/16) of it with a
+    downsampler (JAX ResMuZero._hidden_hw)."""
+    _, h, w = observation_shape
+    if downsample:
+        return math.ceil(h / 16), math.ceil(w / 16)
+    return h, w
+
+
 class RepresentationResnet(nn.Module):
-    """Reference models.py:300-349, downsample=False."""
+    """Reference models.py:300-349: a downsampler (DownSampleResnet_0 or
+    DownsampleCNN_0), or a 3x3 conv, batch norm and ReLU; then the residual
+    blocks."""
 
     def __init__(self, in_channels: int, num_blocks: int, num_channels: int,
-                 fold_bn: bool = False, dtype=torch.float32, act_dtype=torch.float32):
+                 downsample=False, hw=None, fold_bn: bool = False, dtype=torch.float32,
+                 act_dtype=torch.float32):
         super().__init__()
         self.fold_bn = fold_bn
-        self.TorchConv_0 = conv3x3(in_channels, num_channels, fold_bn, dtype,
-                                   act_dtype if fold_bn else torch.float32)
-        if not fold_bn:
-            self.BatchNorm_0 = batch_norm(num_channels)
+        self.downsample = downsample
+        if downsample == "resnet":
+            self.DownSampleResnet_0 = DownSampleResnet(in_channels, num_channels, fold_bn,
+                                                       dtype, act_dtype)
+        elif downsample == "CNN":
+            self.DownsampleCNN_0 = DownsampleCNN(in_channels, num_channels, hw, dtype)
+        elif downsample:
+            raise NotImplementedError('downsample should be "resnet" or "CNN".')
+        else:
+            self.TorchConv_0 = conv3x3(in_channels, num_channels, fold_bn, dtype,
+                                       act_dtype if fold_bn else torch.float32)
+            if not fold_bn:
+                self.BatchNorm_0 = batch_norm(num_channels)
         for i in range(num_blocks):
             self.add_module(f"ResidualBlock_{i}",
                             ResidualBlock(num_channels, fold_bn, dtype, act_dtype))
         self.num_blocks = num_blocks
 
     def forward(self, x):
-        x = self.TorchConv_0(x)
-        if not self.fold_bn:
-            x = self.BatchNorm_0(x)
-        x = F.relu(x)
+        if self.downsample == "resnet":
+            x = self.DownSampleResnet_0(x)
+        elif self.downsample == "CNN":
+            x = self.DownsampleCNN_0(x)
+        else:
+            x = self.TorchConv_0(x)
+            if not self.fold_bn:
+                x = self.BatchNorm_0(x)
+            x = F.relu(x)
         for i in range(self.num_blocks):
             x = getattr(self, f"ResidualBlock_{i}")(x)
         return x
@@ -149,11 +250,6 @@ class ResMuZero(nn.Module):
                  support_size: int, downsample=False, fold_bn: bool = False,
                  dtype=torch.float32, act_dtype=torch.float32):
         super().__init__()
-        if downsample:
-            raise NotImplementedError(
-                f"downsample={downsample!r} is not ported yet (ROADMAP module "
-                "item 12); the port's ResNet takes downsample=False"
-            )
         self.hparams = dict(
             observation_shape=tuple(observation_shape),
             stacked_observations=stacked_observations,
@@ -165,9 +261,10 @@ class ResMuZero(nn.Module):
             fc_reward_layers=tuple(fc_reward_layers),
             fc_value_layers=tuple(fc_value_layers),
             fc_policy_layers=tuple(fc_policy_layers),
-            support_size=support_size, dtype=dtype,
+            support_size=support_size, downsample=downsample, dtype=dtype,
         )
-        c, h, w = observation_shape
+        c = observation_shape[0]
+        h, w = hidden_hw(observation_shape, downsample)
         n = stacked_observations
         self.action_space_size = action_space_size
         self.support_size = support_size
@@ -175,7 +272,8 @@ class ResMuZero(nn.Module):
         self.fold_bn = fold_bn
         self.dtype = dtype
         self.representation_network = RepresentationResnet(
-            c * (n + 1) + n, num_blocks, num_channels, fold_bn, dtype, act_dtype
+            c * (n + 1) + n, num_blocks, num_channels, downsample, (h, w), fold_bn, dtype,
+            act_dtype,
         )
         self.dynamics_network = DynamicsResnet(
             num_blocks, num_channels, reduced_channels_reward, fc_reward_layers,
@@ -195,7 +293,7 @@ class ResMuZero(nn.Module):
         return twin.to(next(self.parameters()).device).eval()
 
     def representation(self, observation):
-        """observation [B, C', H, W] -> hidden [B, channels, H, W]."""
+        """observation [B, C', H, W] -> hidden [B, channels, h, w] (hidden_hw)."""
         return normalize_hidden_conv(self.representation_network(observation))
 
     def dynamics(self, hidden, action):

@@ -21,9 +21,10 @@ What of the JAX package's muzero.py is where:
 - Raised with NotImplementedError, naming the ROADMAP queue 1 item that
   will lift it: `split_resources_in` > 1, `devices`, `distributed`, a
   mesh (`mesh_dp`/`mesh_mp` > 1) and `hyperparameter_search` (item 9);
-  `device_replay` where JAX engages it (item 7); host envs (item 8);
-  `diagnose_model` (item 5); the Gumbel search (item 6, in the self-play
-  driver and in evaluate.py).
+  `device_replay` where JAX engages it (item 7); host envs (item 8); the
+  Gumbel search (item 6, in the self-play driver and in evaluate.py).
+- `diagnose_model` :839-847 runs diagnose.py's DiagnoseModel on the
+  checkpoint's weights.
 - The mesh and multi-host code of `_train` (:244-313, :326-349, :453-466)
   has no counterpart: the port runs on one card.
 """
@@ -497,8 +498,14 @@ class MuZero:
 
     # ------------------------------------------------------------------
     def diagnose_model(self, horizon=3):
-        """Virtual-vs-real trajectory diagnosis (reference muzero.py:466-479)."""
-        raise _not_ported("diagnose_model (diagnose.py)", 5)
+        """Virtual-vs-real trajectory diagnosis (reference muzero.py:466-479)
+        of the checkpoint's weights, plotted; returns (virtual, real,
+        divergence_index) of DiagnoseModel.compare_virtual_with_real_trajectories."""
+        from muzero_general_tpu_torch.diagnose import DiagnoseModel
+
+        self.network.load_state_dict(params_from_jax(self.checkpoint["weights"]))
+        dm = DiagnoseModel(self.network, self.config, self.device)
+        return dm.compare_virtual_with_real_trajectories(self.make_env(), horizon)
 
 
 def _flush_priorities(replay, pending):
@@ -562,8 +569,8 @@ def main(argv=None, device=None):
     (reference muzero.py:622-712). With a game, trains it; without, the
     interactive menu. `device`: as MuZero's (None: the card).
 
-    The menu's "Diagnose model" and "Hyperparameter search" reach the
-    NotImplementedError of diagnose_model and hyperparameter_search."""
+    The menu's "Hyperparameter search" reaches the NotImplementedError of
+    hyperparameter_search."""
     argv = argv if argv is not None else sys.argv[1:]
     from muzero_general_tpu_torch.games import AVAILABLE_GAMES
 

@@ -5,7 +5,10 @@ without pre-marked visits; ops/mcts_kernels.py), the streaming search's
 descent and edge updates (ops/mcts_stream.py), the hidden-store row write
 (ops/hidden_store.py), and the probes' convolutions and pointer chase
 (tools/conv_probe.py, tools/stream_probe.py, held to tolerances stated
-there); and the bf16 ResNet on the card against itself on the CPU.
+there); the bf16 ResNet and breakout's downsampled ResNets (f32 and bf16)
+on the card against themselves on the CPU; and a self-play chunk of
+gridworld, twentyone and breakout with every kernel launch held against
+its plain version.
 
 Every test here carries the `gpu` marker and skips without a CUDA card. The
 file imports no JAX, so it also runs where JAX is absent; there the suite's
@@ -1465,3 +1468,125 @@ def test_eval_game_on_the_card_matches_the_cpu(cuda, game):
     for field in ("actions", "rewards", "to_play", "child_visits"):
         np.testing.assert_array_equal(getattr(gpu, field), getattr(cpu, field), err_msg=field)
     np.testing.assert_allclose(gpu.root_values, cpu.root_values, rtol=0, atol=5e-5)
+
+
+# ---- the games of the later slice: gridworld, twentyone, breakout ------------
+
+
+def _checked_kernels(monkeypatch):
+    """Wrap the search kernels' wrappers so every launch is held against its
+    plain version on copies of the same inputs (the fused search's visits
+    and depth equal, values within 1e-5; the tree kernels' outputs and
+    updated slabs equal). Returns {kernel: launches checked}; the wrappers
+    count their launches on the checked versions."""
+    search, descend, backprop = mcts_fused.search, mcts_kernels.descend_planar, mcts_kernels.backprop
+    checked = {"search": 0, "descend_planar": 0, "backprop": 0}
+
+    def checked_search(*args, **kw):
+        got = search(*args, **kw)
+        want = mcts_fused.search_plain(*args, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+        checked["search"] += 1
+        return got
+
+    def checked_descend(*args, **kw):
+        got = descend(*args, **kw)
+        want = mcts_kernels.descend_planar_plain(*args, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        checked["descend_planar"] += 1
+        return got
+
+    def checked_backprop(*args, **kw):
+        twins = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        got = backprop(*args, **kw)
+        want = mcts_kernels.backprop_plain(*twins, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        checked["backprop"] += 1
+        return got
+
+    checked_search.launches = 0
+    checked_descend.launches = checked_descend.marked_launches = 0
+    checked_backprop.launches = checked_backprop.pre_marked_launches = 0
+    monkeypatch.setattr(mcts_fused, "search", checked_search)
+    monkeypatch.setattr(mcts_kernels, "descend_planar", checked_descend)
+    monkeypatch.setattr(mcts_kernels, "backprop", checked_backprop)
+    return checked, (checked_search, checked_descend, checked_backprop)
+
+
+@pytest.mark.parametrize("game", ["gridworld", "twentyone", "breakout"])
+def test_new_games_selfplay_launches_match_plain(cuda, game, monkeypatch):
+    """One self-play chunk of each game at small widths on the card: every
+    launch of its search kernels equals the plain version's."""
+    from muzero_general_tpu_torch.config import load_game_module
+
+    module = load_game_module(game)
+    cfg = module.MuZeroConfig()
+    cfg.parallel_games, cfg.selfplay_chunk_moves = 8, 4
+    if game == "breakout":
+        cfg.blocks, cfg.channels = 1, 8
+    driver = SelfPlayDriver(module.make_env(), MuZeroNetwork(cfg), cfg, seed=0)
+    fused = game == "gridworld"
+    assert driver.search_route == ("fused" if fused else "staged")
+    assert fused or driver.spec.use_kernels
+    checked, (search, descend, backprop) = _checked_kernels(monkeypatch)
+    _, stats = driver.play(temperature=1.0)
+    moves = cfg.selfplay_chunk_moves
+    if fused:
+        assert search.launches == checked["search"] == moves
+    else:
+        sims = cfg.num_simulations * moves
+        assert descend.launches == backprop.launches == sims
+        assert checked["descend_planar"] == checked["backprop"] == sims
+    assert stats["env_steps"] == 8 * moves
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("downsample", ["resnet", "CNN"])
+def test_downsampled_resnet_on_the_card_matches_the_cpu(cuda, downsample, dtype):
+    """Breakout's net (2 x 16, 96 x 96 frames downsampled to 6 x 6), unfolded
+    and folded, on the card against the CPU from the same weights: float32
+    within 1e-4 (cuDNN and oneDNN sum the pyramid's convs in other orders);
+    bfloat16 as test_bf16_resnet_on_the_card_matches_the_cpu (3e-2 of the
+    largest logit, hidden within 3e-2)."""
+    from muzero_general_tpu_torch.games import breakout
+    from muzero_general_tpu_torch.models import activation_dtype
+
+    cfg = breakout.MuZeroConfig()
+    cfg.downsample = downsample
+    cfg.compute_dtype = dtype
+    cfg.search_bf16_activations = dtype == "bfloat16"
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    cpu = MuZeroNetwork(cfg, device="cpu", seed=4)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for m in cpu.modules():  # random batch norms, so the fold is not the identity
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5, 1.5),
+                                  (m.bias, -0.2, 0.2), (m.running_mean, -0.2, 0.2)):
+                    t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
+    card = MuZeroNetwork(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    env = breakout.make_env(device="cpu")
+    state = env.reset(8)
+    for _ in range(40):
+        state, _, _ = env.step(state, torch.randint(0, 4, (8,), generator=gen), gen)
+    obs = env.observation(state)
+    action = torch.arange(8) % 4
+    for variant in ("unfolded", "folded"):
+        nets = (cpu, card) if variant == "unfolded" else (
+            fold_bn(cpu, activation_dtype(cfg)), fold_bn(card, activation_dtype(cfg)))
+        outs = []
+        with torch.no_grad():
+            for net, dev in zip(nets, ("cpu", cuda)):
+                init = net.initial_inference(obs.to(dev))
+                rec = net.recurrent_inference(init[3], action.to(dev))
+                outs.append([t.cpu() for t in (*init, *rec)])
+        assert outs[0][3].shape == (8, 16, 6, 6)
+        for i, (got, want) in enumerate(zip(outs[1], outs[0])):
+            assert got.dtype == want.dtype
+            if i % 4 == 3:
+                torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+            elif i != 1:
+                scale = max(1.0, float(want.abs().max()))
+                torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)

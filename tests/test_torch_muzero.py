@@ -476,7 +476,20 @@ def test_port_resumes_a_jax_written_run(tmp_path_factory, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_unported_branches_raise(tmp_path):
+def no_plots(monkeypatch):
+    """Record diagnose.py's plots instead of drawing them; returns the list
+    they are recorded in (the tree as "mcts", the heatmaps by title)."""
+    from muzero_general_tpu_torch import diagnose
+
+    drawn = []
+    monkeypatch.setattr(diagnose.Trajectoryinfo, "plot_trajectory",
+                        lambda self, *a, **k: drawn.append(self.title))
+    monkeypatch.setattr(diagnose.DiagnoseModel, "plot_mcts",
+                        lambda self, *a, **k: drawn.append("mcts"))
+    return drawn
+
+
+def test_unported_branches_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 9"):
         MuZero("cartpole", split_resources_in=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -497,11 +510,15 @@ def test_unported_branches_raise(tmp_path):
         mz.train(log_in_tensorboard=False)
     with pytest.raises(NotImplementedError, match="item 6"):
         evaluate.play_against_opponent(mz.make_env(), mz.network, mz.config, "self", 0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mz.diagnose_model()
     with pytest.raises(NotImplementedError, match="item 9"):
         port_muzero.hyperparameter_search("cartpole", None, 20, 1, 10)
     mz = MuZero("cartpole", dict(base), device="cpu")
+    # diagnose_model is ported (tests/test_torch_diagnose.py): it runs, its
+    # plots recorded instead of drawn.
+    drawn = no_plots(monkeypatch)
+    virtual, real, _ = mz.diagnose_model(horizon=2)
+    assert len(virtual.action_history) == 2 and real.mcts_depth
+    assert drawn == ["mcts", "Virtual trajectory: ", "Real trajectory: "]
     mz.make_env = lambda: SimpleNamespace(host_env=True, device=mz.device)
     with pytest.raises(NotImplementedError, match="item 8"):
         mz.train(log_in_tensorboard=False)
@@ -563,15 +580,23 @@ def test_cli_trains_and_writes_a_checkpoint(tmp_path):
 
 
 def test_cli_menu_reaches_the_ported_methods(tmp_path, monkeypatch, capsys):
-    """The menu: game 0 (cartpole), then "Diagnose model" raises; the same
-    for "Hyperparameter search"; "Exit" ends it."""
+    """The menu: game 0 (cartpole), then "Diagnose model" runs (horizon 30,
+    its plots recorded instead of drawn), then "Exit" ends it; "Hyperparameter
+    search" raises."""
     monkeypatch.setattr(port_muzero.config_lib.MuZeroConfig, "default_results_path",
                         lambda self, game: tmp_path)
-    for action, item in (("2", "item 5"), ("6", "item 9")):
-        answers = iter(["0", action])
-        monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
-        with pytest.raises(NotImplementedError, match=item):
-            port_muzero.main([], device="cpu")
+    drawn = no_plots(monkeypatch)
+    answers = iter(["0", "2", "7"])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
+    port_muzero.main([], device="cpu")
+    assert drawn == ["mcts", "Virtual trajectory: ", "Real trajectory: "]
+    out = capsys.readouterr().out
+    assert "Diagnose model" in out
+    assert "Real trajectory reached Done" in out or "Reached horizon" in out
+    answers = iter(["0", "6"])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        port_muzero.main([], device="cpu")
     answers = iter(["0", "7"])
     monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
     port_muzero.main([], device="cpu")

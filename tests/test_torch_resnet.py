@@ -123,10 +123,12 @@ def test_params_from_jax_maps_every_resnet_leaf():
 
 
 def test_resnet_refuses_what_is_not_ported():
+    """Both downsamplers are ported (tests/test_torch_downsample.py); any
+    other downsample value raises the JAX package's message."""
     cfg = Connect4()
-    for downsample in ("resnet", "CNN"):
+    for downsample in ("FFT", True):
         cfg.downsample = downsample
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match='downsample should be "resnet" or "CNN"'):
             MuZeroNetwork(cfg, device="cpu")
     cfg.downsample = False
     # bfloat16 is ported: the layers compute in it, the parameters stay float32.

@@ -155,8 +155,8 @@ def test_driver_rejects_what_is_not_ported():
     gspec = SelfPlayDriver(env, net, gcfg, device="cpu").spec
     assert gspec.use_stream and not gspec.use_kernels
     tcfg = TicTacToeConfig()
-    tcfg.downsample = "resnet"
-    with pytest.raises(NotImplementedError, match="item 12"):
+    tcfg.downsample = "FFT"  # "resnet" and "CNN" are ported; others raise JAX's message
+    with pytest.raises(NotImplementedError, match='downsample should be "resnet" or "CNN"'):
         MuZeroNetwork(tcfg, device="cpu")
     tcfg.downsample = False
     tcfg.compute_dtype = "bfloat16"
