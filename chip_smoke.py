@@ -39,7 +39,8 @@ In order, it:
       and the backprop's floor (the same launch with every leaf depth -1);
    b. runs SelfPlayDriver on connect4 with the pretrained weights at 256
       lanes x 200 simulations, chunks of 8 moves; times 3 chunks after a
-      warm-up, the move loop inside them apart from the host's episode
+      warm-up (their games are phase 12d's replay data), the move loop
+      inside them apart from the host's episode
       cuts; checks that each kernel was launched 200 times per move; times
       the network's and the kernels' device work by CUDA graph replay and
       profiles one move for the card's busy share; then replay as in 3d on
@@ -87,7 +88,7 @@ In order, it:
       of its deepest lane, and the update's floor (the same launch with
       bound 0);
    b. runs SelfPlayDriver on gomoku at 64 lanes x 400 simulations, chunks of
-      2 moves; times 3 chunks after a warm-up, the move loop apart from the
+      2 moves; times 2 chunks after a warm-up, the move loop apart from the
       host's episode cuts; checks the stream route with the BN folded, 400
       launches of each kernel per move and the visit policies (sum 1, none
       on an occupied cell); times the network's and the kernels' device work
@@ -112,14 +113,15 @@ In order, it:
    connect4 K = 1 (pretrained, 256 lanes x 200 sims, the 64-game gate
    against the expert), connect4 K = 8 with bf16 search activations (the
    whole-search check of 4c) and gomoku (64 lanes x 400 sims); each timed
-   as in 4b, profiled for one move, and checked to run its convs on bf16
-   weights with the hidden store in its activation dtype;
+   as in 4b (2 timed chunks; gomoku's 1), profiled for one move, and
+   checked to run its convs on bf16 weights with the hidden store in its
+   activation dtype;
 12. the learner (trainer.py), on replay batches from the games of 3d and 4b:
    a. cartpole's main path (batch 128, unroll 10, Adam, PER, 8 fused
       steps, remat) from the shipped checkpoint and its Adam state: one
       fused call on the card against the same call on the CPU (losses,
       priorities, params, Adam moments; tolerances at LEARN_F32);
-   b. the card's train-step rate over 25 fused calls, the host's batch
+   b. the card's train-step rate over 12 fused calls, the host's batch
       assembly timed apart; one fused call profiled (launches per step,
       the card's busy share);
    c. the learn loop, 4 rounds of: play a chunk (1,024 lanes, the fused
@@ -147,9 +149,10 @@ In order, it:
    c. MuZero("connect4", 64 lanes, 16 steps).train(), across one opponent
       evaluation game (the B = 1 search; its route printed) and the planar
       kernels' launches in self-play; the phase split;
-   d. the shipped connect4 checkpoint: test(opponent="expert", num_tests=4),
-      the wins recorded (not gated; 4 games, as each MuZero move's B = 1
-      search on the plain-op route takes seconds on the card);
+   d. the shipped connect4 checkpoint: test(opponent="expert", num_tests=1),
+      the result recorded (not gated; one game, as each MuZero move's B = 1
+      search on the plain-op route takes seconds on the card: a depth cut
+      from 4, which keeps the whole script inside its time limit);
    e. `python -m muzero_general_tpu_torch cartpole '{"training_steps": 16,
       ...}'` in a subprocess: rc 0 and a checkpoint written;
 14. the remaining device games and the diagnosis (diagnose.py):
@@ -171,14 +174,46 @@ In order, it:
       searches at G = 1 held against search_plain, the others' B = 1 search
       on the plain-op route (no launch); one breakout learner step from
       that run's checkpoint and replay buffer, card against CPU (LEARN_F32);
-   d. DiagnoseModel on gridworld's trained checkpoint and the shipped
-      connect4 one: compare_virtual_with_real_trajectories, then the plots
+   d. DiagnoseModel on gridworld's trained checkpoint (horizon 5) and the
+      shipped connect4 one (horizon 1: its B = 1 searches are host-bound):
+      compare_virtual_with_real_trajectories, then the plots
       into a temporary directory where matplotlib, seaborn and graphviz are
       installed; the search's route (plain-op at B = 1) and no launch;
-15. prints one {"kernels": [...]} JSON line (the fused search's entry with
-   its train() and test() launches, the planar kernels' with connect4's
-   train() launches, each with the launches of phase 14's games under
-   "<game>_selfplay_launches", "<game>_train_launches" and
+15. the Gumbel search (ops/gumbel.py) and device replay
+   (ops/device_replay.py), neither with a kernel of its own, as in JAX:
+   a. run_gumbel_mcts on the card against the same call on the CPU with the
+      same injected Gumbel draw: a table network (64 lanes x 50 sims, two
+      players, m 16 and 4; trees, depths and both actions exact, root
+      values within GUMBEL_VALUE_RTOL), then the shipped cartpole net (256
+      lanes x 16 sims) and the shipped connect4 net (16 lanes x 200 sims):
+      the invariants (visit sums, each lane's visits following the halving
+      table for its m, none on illegal actions, the improved policy summing
+      to 1), the shares of lanes whose root visits and whole trees equal
+      the CPU's, and the latter's root values within GUMBEL_NET_VALUE_ATOL;
+   b. Gumbel self-play, the driver on the staged route: cartpole 4,096
+      lanes x 16 sims (m 16), 2 timed chunks of 8 moves; connect4's shipped
+      net, 64 lanes x 200 sims, 1 timed chunk of GUMBEL_C4_CHUNK_MOVES
+      (depth cuts); ms a move, env-steps/s, one move profiled for its
+      device launches per simulation, and no launch of the port's kernels;
+   c. MuZero("cartpole", {"use_gumbel_mcts": True, "num_simulations": 16,
+      "gumbel_max_considered_actions": 16, "training_steps":
+      GUMBEL_TRAIN_STEPS}).train(), then test(num_tests=1) on the G = 1
+      Gumbel search;
+   d. device replay card against CPU: rings filled from the games of 3d and
+      4b (save_games), batches on forced draws (equal but float32 sums,
+      within RING_ULPS), one make_device_train call at M = 8 from the
+      shipped cartpole checkpoint and its Adam state (LEARN_F32), with no
+      batch copied from the host;
+   e. MuZero("cartpole", {"training_steps": 400, "device_replay":
+      True}).train() beside 13a's host-replay run: train steps/s, the phase
+      split, the device rounds and single host steps, host-to-card batch
+      copies in the rounds (must be 0), reanalyse sweeps mirrored into the
+      ring, and kernel 1's launches in its self-play;
+16. prints one {"kernels": [...]} JSON line (the fused search's entry with
+   its train() and test() launches and 15e's under
+   "cartpole_device_replay_train_launches", the planar kernels' with
+   connect4's train() launches, each with the launches of phase 14's games
+   under "<game>_selfplay_launches", "<game>_train_launches" and
    "<game>_test_launches"), then ends with {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
@@ -1660,7 +1695,7 @@ def gomoku_path():
     spec = driver.spec
     if driver.use_fused or spec.use_kernels or not spec.use_stream or not driver.fold_bn:
         fail("gomoku: the driver did not route to the stream kernels with the BN folded")
-    K, reps, S = cfg.selfplay_chunk_moves, 3, cfg.num_simulations
+    K, reps, S = cfg.selfplay_chunk_moves, 2, cfg.num_simulations
     mcts_stream.descend_stream.launches = 0
     mcts_stream.update_edges.launches = 0
     chunk_s, loop_ms, stats, records = timed_play(driver, reps)
@@ -2045,7 +2080,7 @@ def bf16_lanes():
     cfg = connect4_config(1, False)
     net = load_pretrained(MuZeroNetwork(cfg), C4_CHECKPOINT)
     _, folded = bf16_lane("connect4 bf16", connect4, cfg, net,
-                          [(d, "launches"), (b, "launches")])
+                          [(d, "launches"), (b, "launches")], reps=2)
     quality_gate(cfg, folded, connect4.make_env())
 
     cfg = connect4_config(8, True)
@@ -2063,7 +2098,7 @@ def bf16_lanes():
     net = MuZeroNetwork(cfg, seed=0)
     bf16_lane("gomoku bf16", gomoku, cfg, net,
               [(mcts_stream.descend_stream, "launches"), (mcts_stream.update_edges, "launches")],
-              means=("descend_stream_kernel",))
+              reps=1, means=("descend_stream_kernel",))
 
 
 # ---------------------------------------------------------------------------
@@ -2128,8 +2163,6 @@ def compare_learners(label, card, cpu, stacked, loss_rtol, gap_tol, stats_tol, c
     gap_tol times the CPU's own distance from them. `share`
     None: every param within `close`; else that share of the elements, and
     none farther than 10 x lr. Returns the CPU's priorities."""
-    from muzero_general_tpu_torch.checkpoint import optimizer_state_to_jax
-
     t0 = time.perf_counter()
     m_cpu, p_cpu = cpu.train_steps(stacked)
     cpu_s = time.perf_counter() - t0
@@ -2157,6 +2190,23 @@ def compare_learners(label, card, cpu, stacked, loss_rtol, gap_tol, stats_tol, c
         fail(f"{label}: |value - target| differs by up to {float(d.max())!r} "
              f"(priorities by {float((p_card - p_cpu).abs().max())!r})")
     err["priorities"] = float(d.max())
+    worst, beyond = compare_learner_states(label, card, cpu, stats_tol, close, share, moments)
+    err["params"], err["params_beyond"] = worst, beyond
+    log(f"[{label}] card vs CPU: losses within {max(err[k] for k in err if 'loss' in k):.3g} "
+        f"relative, |value - target| of the priorities {err['priorities']:.3g}, params {worst:.3g} "
+        f"({100 * err['params_beyond']:.4f}% beyond {close}), running statistics within "
+        f"{stats_tol[0]} + rtol {stats_tol[1]}" + ("; Adam moments and count as the CPU's" if moments else "")
+        + f"; largest |target value| {scale:.4g}; the CPU's call took {cpu_s:.2f} s")
+    return p_cpu
+
+
+def compare_learner_states(label, card, cpu, stats_tol, close, share=None, moments=False):
+    """Fail unless the card learner's params, running statistics and (with
+    `moments`) Adam state equal the CPU's within the tolerances of
+    compare_learners. Returns (the largest param difference, the share of
+    params beyond `close`)."""
+    from muzero_general_tpu_torch.checkpoint import optimizer_state_to_jax
+
     s_card, s_cpu = card.network.state_dict(), cpu.network.state_dict()
     names = dict(card.network.named_parameters())
     worst, far, total, out = 0.0, 0, 0, 0
@@ -2176,8 +2226,6 @@ def compare_learners(label, card, cpu, stacked, loss_rtol, gap_tol, stats_tol, c
         total += diff.numel()
         out += int((diff > close).sum())
         far += int((diff > lr_bound).sum())
-    err["params"] = worst
-    err["params_beyond"] = out / total
     if share is None and out:
         fail(f"{label}: {out} of {total} params farther than {close} from the CPU's "
              f"(largest {worst!r})")
@@ -2192,12 +2240,7 @@ def compare_learners(label, card, cpu, stacked, loss_rtol, gap_tol, stats_tol, c
                     fail(f"{label}: Adam {key} of {name} differs by {abs(x - y).max()!r}")
         if int(a["count"]) != int(b["count"]):
             fail(f"{label}: Adam count {a['count']} on the card, {b['count']} on the CPU")
-    log(f"[{label}] card vs CPU: losses within {max(err[k] for k in err if 'loss' in k):.3g} "
-        f"relative, |value - target| of the priorities {err['priorities']:.3g}, params {worst:.3g} "
-        f"({100 * err['params_beyond']:.4f}% beyond {close}), running statistics within "
-        f"{stats_tol[0]} + rtol {stats_tol[1]}" + ("; Adam moments and count as the CPU's" if moments else "")
-        + f"; largest |target value| {scale:.4g}; the CPU's call took {cpu_s:.2f} s")
-    return p_cpu
+    return worst, out / total
 
 
 def _flax_leaves(tree, prefix=""):
@@ -2270,7 +2313,7 @@ def cartpole_learner(buf):
 
     # ---- 12b. the rate, with the host's batch assembly timed apart ---------
     t0 = time.perf_counter()
-    calls = [stacked_batches(buf, M) for _ in range(26)]
+    calls = [stacked_batches(buf, M) for _ in range(13)]
     assemble_ms = (time.perf_counter() - t0) * 1e3 / len(calls)
     log(f"[cartpole learner] host batch assembly: {assemble_ms:.3f} ms per {M} batches "
         f"(get_batch on the C++ assembler and np.stack; {cfg.batch_size} x "
@@ -2386,7 +2429,7 @@ def connect4_learner(buf):
         card, cpu = learner_pair(cfg, C4_CHECKPOINT)
         p_cpu = compare_learners(label, card, cpu, stacked, **tol, share=0.99, gap_ref=ref)
         ref = p_cpu if ref is None else ref
-        calls = [stacked_batches(buf, 2) for _ in range(4)]
+        calls = [stacked_batches(buf, 2) for _ in range(2)]
         rates[dtype], _ = learner_rate(card, calls, label, 2)
     return rates
 
@@ -2695,7 +2738,7 @@ def orchestration_phase(kernels):
     mz4 = MuZero("connect4", {"results_path": str(root / "connect4_test")})
     mz4.load_model(checkpoint_path=C4_CHECKPOINT)
     t0 = time.perf_counter()
-    games = 4
+    games = 1
     mean = mz4.test(opponent="expert", num_tests=games)
     wins = mean * games / 10  # a win is worth 10
     log(f"[muzero connect4] pretrained vs expert: test(opponent='expert', num_tests={games}) "
@@ -2726,7 +2769,7 @@ def orchestration_phase(kernels):
 # A breakout game of the shipped config lasts up to 2,500 moves; phase 14c
 # cuts max_moves (a depth cut) so that its games, and test()'s B = 1 game
 # (~14 ms a simulation, host-bound), end inside the phase.
-BREAKOUT_MAX_MOVES = 32
+BREAKOUT_MAX_MOVES = 16
 # The breakout net on the card against the CPU, from the same weights and
 # observations. float32: cuDNN and oneDNN sum the 96 x 96 pyramid's convs in
 # other orders (fan-in up to 16 x 9), so outputs agree to float32 rounding
@@ -2946,7 +2989,7 @@ def remaining_games_phase(kernels):
     tree_plot = importlib.util.find_spec("graphviz") is not None
     for game, path, horizon in (
             ("gridworld", trained["gridworld"].config.results_path / "model.checkpoint", 5),
-            ("connect4", C4_CHECKPOINT, 2)):
+            ("connect4", C4_CHECKPOINT, 1)):
         mz = MuZero(game, {"results_path": str(root / f"diagnose_{game}")})
         mz.load_model(checkpoint_path=path)
         mz.network.load_state_dict(params_from_jax(mz.checkpoint["weights"]))
@@ -2992,6 +3035,515 @@ def remaining_games_phase(kernels):
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# The Gumbel search (ops/gumbel.py) and device replay (ops/device_replay.py)
+# ---------------------------------------------------------------------------
+
+# Phase 15a's tables: a "table network" over TABLE_IDS hidden ids, whose
+# logits are gathered from the same float32 tables on the card and on the
+# CPU (bit-identical in both places, as the kernel checks' inputs are).
+TABLE_IDS, TABLE_SUPPORT = 97, 5
+# Root values of the lanes whose trees equal the CPU's. The table network:
+# the support decode rounds per device (float32 ulps through h^-1), in a
+# mean over up to 50 backed-up values: GUMBEL_VALUE_RTOL, GUMBEL_VALUE_ATOL.
+# The shipped nets: cuDNN's float32 convs (no TF32) sum in other orders, and
+# may take other algorithms, than oneDNN's, so logits agree within phase
+# 14b's NET_F32_TOL of max(1, |logit|), which the decode's h^-1 magnifies
+# up to ~7x at connect4's |values| near 10: GUMBEL_NET_VALUE_ATOL.
+GUMBEL_VALUE_RTOL, GUMBEL_VALUE_ATOL = 1e-4, 1e-4
+GUMBEL_NET_VALUE_ATOL = 1e-2
+# Phase 15b's connect4 lanes play chunks of this many moves (the shipped 8;
+# a depth cut: a 200-simulation Gumbel move takes ~7 s on the plain-op
+# route, host-bound, so a warm-up and one timed chunk of one move keep the
+# phase near its time).
+GUMBEL_C4_CHUNK_MOVES = 1
+# Phase 15c's Gumbel train() steps: 100 (a depth cut from 200, which keeps
+# the whole script inside its time limit on a slower host).
+GUMBEL_TRAIN_STEPS = 100
+
+
+def table_net(tables, A, device):
+    """(initial_fn, recurrent_fn) of the table network on `device`: the
+    hidden state is the id, the recurrent step maps (id, a) to
+    (id * A + a + 1) % TABLE_IDS."""
+    tv, tr, tp = (torch.from_numpy(t).to(device) for t in tables)
+
+    def initial_fn(obs):
+        ids = obs[:, 0].long()
+        return tv[ids], torch.zeros_like(tr[ids]), tp[ids], obs
+
+    def recurrent_fn(hidden, action):
+        ids = (hidden[:, 0].long() * A + action.long() + 1) % TABLE_IDS
+        return tv[ids], tr[ids], tp[ids], ids[:, None].to(torch.float32)
+
+    return initial_fn, recurrent_fn
+
+
+def gumbel_invariants(label, out, legal, spec):
+    """Visit sums equal the simulation count, each lane's root visits
+    follow the halving table for its m, illegal actions get 0 visits, the
+    improved policy sums to 1 over the legal actions."""
+    import numpy as np
+
+    from muzero_general_tpu_torch.ops import gumbel as gumbel_ops
+
+    visits = out.root_visit_counts.cpu().numpy()
+    legal = legal.cpu().numpy()
+    S = spec.num_simulations
+    if not (visits.sum(-1) == S).all() or visits[~legal].any():
+        fail(f"{label}: visit sums {sorted(set(visits.sum(-1).tolist()))} (want {S}) or "
+             f"visits on illegal actions")
+    m_cap = min(spec.max_considered_actions, legal.shape[1])
+    table = gumbel_ops.table_of_considered_visits(m_cap, S)
+    for b in range(visits.shape[0]):
+        m = int(np.clip(legal[b].sum(), 1, m_cap))
+        # Each simulation takes a candidate from its prescribed count c to
+        # c + 1, so the actions with at least k visits are as many as the
+        # simulations that prescribed k - 1.
+        prescribed = np.bincount(table[m], minlength=S + 1)
+        got = [int((visits[b] >= k).sum()) for k in range(1, S + 1)]
+        if got != prescribed[:S].tolist():
+            fail(f"{label}: lane {b} (m = {m}) visits {visits[b].tolist()} do not follow the "
+                 f"halving table {table[m].tolist()}")
+    pol = out.improved_policy.cpu().numpy()
+    if np.abs(pol.sum(-1) - 1).max() > 1e-5 or (pol[~legal] != 0).any():
+        fail(f"{label}: the improved policy does not sum to 1 over the legal actions")
+
+
+def gumbel_card_vs_cpu(label, card_fns, cpu_fns, obs, legal, to_play, spec, gumbel,
+                       exact=True):
+    """run_gumbel_mcts on the card and on the CPU with the same injected
+    Gumbel draw. exact: every lane's tree (children and visits), depth and
+    both actions must equal the CPU's, root values within GUMBEL_VALUE_RTOL;
+    else the shares of lanes whose root visits and whose whole trees equal
+    the CPU's are reported, and the latter's root values held to
+    GUMBEL_NET_VALUE_ATOL. Returns (card output, tree share)."""
+    from muzero_general_tpu_torch.ops import gumbel as gumbel_ops
+
+    secs = []
+    outs = []
+    for fns, dev in ((card_fns, "cuda"), (cpu_fns, "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = gumbel_ops.run_gumbel_mcts(
+                *fns, obs.to(dev), legal.to(dev), to_play.to(dev), None, spec,
+                gumbel=gumbel.to(dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+    card, cpu = outs
+    gumbel_invariants(f"{label} (card)", card, legal, spec)
+    same_root = (card.root_visit_counts.cpu() == cpu.root_visit_counts).all(-1)
+    for name in ("max_tree_depth", "action", "greedy_action"):
+        same_root &= getattr(card, name).cpu() == getattr(cpu, name)
+    same_tree = same_root.clone()
+    for name in ("children_index", "children_visit"):
+        same_tree &= (getattr(card.tree, name).cpu() == getattr(cpu.tree, name)).flatten(1).all(-1)
+    root_share, tree_share = float(same_root.float().mean()), float(same_tree.float().mean())
+    if exact and tree_share < 1.0:
+        fail(f"{label}: {int((~same_tree).sum())} lanes differ from the CPU's in their trees, "
+             f"depth or actions")
+    got, want = card.root_value.cpu()[same_tree], cpu.root_value[same_tree]
+    err = float((got - want).abs().max()) if bool(same_tree.any()) else 0.0
+    rtol, atol = (GUMBEL_VALUE_RTOL, GUMBEL_VALUE_ATOL) if exact else (0.0, GUMBEL_NET_VALUE_ATOL)
+    if bool(((got - want).abs() > atol + rtol * want.abs()).any()):
+        fail(f"{label}: root values differ from the CPU's by {err!r} on equal trees")
+    log(f"[gumbel] {label}: {obs.shape[0]} lanes x {spec.num_simulations} sims, m "
+        f"{spec.max_considered_actions}: card {secs[0]:.2f} s, CPU {secs[1]:.2f} s (host "
+        f"clock); invariants hold; lanes with the CPU's root visits, depth and actions "
+        f"{100 * root_share:.1f}%, with its whole tree {100 * tree_share:.1f}%, their root "
+        f"values within {err:.3g} (|value| up to {float(want.abs().max()) if len(want) else 0:.3g});"
+        f" max depth {int(card.max_tree_depth.max())}")
+    return card, tree_share
+
+
+def kernel_counts():
+    from muzero_general_tpu_torch.ops import hidden_store, mcts_fused, mcts_kernels, mcts_stream
+
+    return {"mcts_fused_search": mcts_fused.search.launches,
+            "descend_planar": mcts_kernels.descend_planar.launches,
+            "descend": mcts_kernels.descend.launches,
+            "backprop": mcts_kernels.backprop.launches,
+            "descend_stream": mcts_stream.descend_stream.launches,
+            "update_edges": mcts_stream.update_edges.launches,
+            "write_node_hidden": hidden_store.write_node_hidden.launches}
+
+
+def gumbel_selfplay(label, module, cfg, net, reps):
+    """One chunk and `reps` timed ones of the Gumbel driver (timed_play),
+    then one move profiled for its device launches; fail if any of the
+    port's kernels launched."""
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+
+    env = module.make_env()
+    driver = SelfPlayDriver(env, net, cfg, seed=0)
+    if driver.search_route != "staged" or not driver.use_gumbel:
+        fail(f"{label}: route {driver.search_route}, Gumbel {driver.use_gumbel}")
+    before = kernel_counts()
+    chunk_s, loop_ms, stats, records = timed_play(driver, reps)
+    if kernel_counts() != before:
+        fail(f"{label}: the Gumbel route launched the port's kernels: {kernel_counts()}")
+    for rec in records:
+        pol = rec.child_visits
+        if bool(((pol.sum(-1) - 1).abs() > 1e-5).any()):
+            fail(f"{label}: improved-policy targets do not sum to 1")
+    K, S = cfg.selfplay_chunk_moves, cfg.num_simulations
+    move_ms = chunk_s * 1e3 / K
+    rows, wall_ms, _ = device_trace(lambda: driver.play_chunk(torch.ones((driver.G,)), 1))
+    launches = sum(r[2] for r in rows)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    busy = (f"{busy_ms:.2f} ms of device kernels, busy {100 * busy_ms / loop_ms:.1f}% of an "
+            f"unprofiled move" if busy_ms > 0 else "device time: not measured")
+    log(f"[gumbel {label}] SelfPlayDriver.play under use_gumbel_mcts: {driver.G} lanes x {S} "
+        f"sims, m {cfg.gumbel_max_considered_actions}, {K} moves a chunk: "
+        f"{chunk_s * 1e3:.2f} ms/chunk, {stats['env_steps'] / chunk_s:.1f} env-steps/s, "
+        f"{move_ms:.3f} ms/move (move loop {loop_ms:.3f}); one move profiled: {launches} "
+        f"device launches ({launches / S:.1f} per simulation), {busy}; {wall_ms:.1f} ms "
+        f"wall profiled; the port's kernels: no launch (as in JAX); max tree depth "
+        f"{stats['max_tree_depth']}")
+    return driver
+
+
+def gumbel_phase():
+    """Phases 15a-15c."""
+    import numpy as np
+
+    from muzero_general_tpu_torch import MuZero
+    from muzero_general_tpu_torch.games import cartpole, connect4
+    from muzero_general_tpu_torch.models import MuZeroNetwork
+    from muzero_general_tpu_torch.ops import gumbel as gumbel_ops
+
+    t_phase = time.perf_counter()
+    # ---- 15a. card against CPU ----------------------------------------------
+    rng = np.random.default_rng(15)
+    B, A, S = 64, 7, 50
+    nbins = 2 * TABLE_SUPPORT + 1
+    tables = tuple(rng.normal(size=(TABLE_IDS, n)).astype(np.float32)
+                   for n in (nbins, nbins, A))
+    obs = torch.from_numpy(rng.integers(0, TABLE_IDS, (B, 1)).astype(np.float32))
+    legal = torch.from_numpy(rng.random((B, A)) < 0.7)
+    legal[torch.arange(B), torch.from_numpy(rng.integers(0, A, B))] = True
+    to_play = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32))
+    gumbel = torch.from_numpy(rng.gumbel(size=(B, A)).astype(np.float32))
+    for m in (16, 4):
+        spec = gumbel_ops.GumbelSpec(num_simulations=S, num_players=2, discount=1.0,
+                                     support_size=TABLE_SUPPORT, max_depth=S,
+                                     max_considered_actions=m)
+        gumbel_card_vs_cpu(f"table network, m {m}", table_net(tables, A, "cuda"),
+                           table_net(tables, A, "cpu"), obs, legal, to_play, spec, gumbel)
+
+    shipped = {}
+    for game, module, path, sims, lanes in (
+            ("cartpole", cartpole, CART_CHECKPOINT, 16, 256),
+            ("connect4", connect4, C4_CHECKPOINT, 200, 16)):
+        cfg = module.MuZeroConfig()
+        cfg.use_gumbel_mcts, cfg.num_simulations = True, sims
+        cfg.gumbel_max_considered_actions = 16
+        card = load_pretrained(MuZeroNetwork(cfg), path).eval()
+        cpu = load_pretrained(MuZeroNetwork(cfg, device="cpu"), path).eval()
+        env, gen = module.make_env(device="cpu"), torch.Generator().manual_seed(3)
+        state = env.reset(lanes, gen)
+        for _ in range(4 if game == "connect4" else 0):
+            state, _, _ = env.step(state, env.random_legal_action(state, gen), gen)
+        obs = env.observation(state)
+        legal, to_play = env.legal_actions_mask(state), env.to_play(state)
+        spec = gumbel_ops.GumbelSpec.from_config(cfg)
+        draw = gumbel_ops.sample_gumbel(tuple(legal.shape), gen)
+        shipped[game] = (cfg, card)
+        gumbel_card_vs_cpu(f"{game} shipped checkpoint", (card.initial_inference,
+                           card.recurrent_inference), (cpu.initial_inference,
+                           cpu.recurrent_inference), obs, legal, to_play, spec, draw,
+                           exact=False)
+    log(f"[done] 15a after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 15b. Gumbel self-play at the shipped widths --------------------------
+    cfg, net = shipped["cartpole"]
+    cfg.parallel_games = 4096
+    gumbel_selfplay("cartpole", cartpole, cfg, net, reps=2)
+    cfg, net = shipped["connect4"]
+    cfg.parallel_games, cfg.selfplay_chunk_moves = 64, GUMBEL_C4_CHUNK_MOVES
+    gumbel_selfplay("connect4", connect4, cfg, net, reps=1)
+    log(f"[gumbel connect4] cuts: 64 lanes (the shipped config's 64; phase 4b runs 256), "
+        f"chunks of {GUMBEL_C4_CHUNK_MOVES} move (shipped 8), 1 timed chunk: depth cuts")
+    log(f"[done] 15b after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 15c. Gumbel training, then test() ------------------------------------
+    import shutil
+
+    root = REPO / "results" / "chip_smoke" / "gumbel"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = GUMBEL_TRAIN_STEPS
+    mz = MuZero("cartpole", {"use_gumbel_mcts": True, "num_simulations": 16,
+                             "gumbel_max_considered_actions": 16, "training_steps": steps,
+                             "results_path": str(root)})
+    before = kernel_counts()
+    ck, train_s = timed_train(mz)
+    lines = metrics_lines(mz.config.results_path)
+    if ck["training_step"] != steps or not lines or kernel_counts() != before:
+        fail(f"15c: Gumbel train() ended at {ck['training_step']}, {len(lines)} logged loops, "
+             f"kernel launches {kernel_counts()}")
+    if not all(np.isfinite(ck[k]) for k in ("total_loss", "value_loss", "policy_loss")):
+        fail("15c: non-finite losses")
+    log(f"[muzero cartpole gumbel] train() {steps} steps (16 lanes x 16 sims, m 16; a depth "
+        f"cut from 200) in {train_s:.2f} s: {steps / train_s:.3f} train steps/s, "
+        f"{ck['num_played_steps'] / train_s:.1f} env-steps/s ({ck['num_played_games']} games); "
+        f"loss {ck['total_loss']:.4f}; no kernel launch")
+    log(f"[muzero cartpole gumbel] phase split: {phase_split(mz.phase_time, train_s)}")
+    t0 = time.perf_counter()
+    result = mz.test(num_tests=1)
+    if kernel_counts() != before or not np.isfinite(result):
+        fail(f"15c: test() gave {result} with kernel launches {kernel_counts()}")
+    log(f"[muzero cartpole gumbel] test(num_tests=1), the G = 1 Gumbel search at temperature "
+        f"0 (greedy actions): reward {result:.1f} in {time.perf_counter() - t0:.2f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"[done] 15a-15c in {seconds:.1f} s")
+    return seconds
+
+
+def ring_pair(cfg, games, capacity):
+    """The same games saved into a ring on the card and one on the CPU."""
+    from muzero_general_tpu_torch.ops import device_replay as dr
+
+    rings = []
+    for dev in ("cuda", "cpu"):
+        ring = dr.init_replay(capacity, cfg.max_moves, tuple(cfg.observation_shape),
+                              len(cfg.action_space), dev)
+        t0 = time.perf_counter()
+        for chunk, valid in dr.pad_games_np(games, cfg.max_moves, tuple(cfg.observation_shape),
+                                            len(cfg.action_space), 8):
+            dr.save_games(ring, {k: torch.from_numpy(v).to(dev) for k, v in chunk.items()},
+                          torch.from_numpy(valid).to(dev), td_steps=cfg.td_steps,
+                          discount=cfg.discount, per_alpha=cfg.PER_alpha,
+                          use_per=bool(cfg.PER))
+        torch.cuda.synchronize()
+        rings.append((ring, time.perf_counter() - t0))
+    return rings
+
+
+# Device replay, card against CPU: integer fields, observations, rewards and
+# policies are copies and gathers (exact); priorities |v - target| ** alpha
+# and value targets sum td_steps float32 terms, which the card's kernels may
+# add in another order or contract into FMAs: RING_ULPS float32 ulps of the
+# largest |target| (the IS weights likewise, relative).
+RING_ULPS = 64
+
+
+def ring_close(label, name, got, want, scale):
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{label}: {name} {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+             f"{tuple(want.shape)}")
+    if not got.is_floating_point() or name in ("observations", "rewards", "child_visits",
+                                               "root_values", "observation", "target_reward",
+                                               "target_policy", "gradient_scale"):
+        if not torch.equal(got, want):
+            fail(f"{label}: {name} differs from the CPU's")
+        return 0.0
+    err = float((got.double() - want.double()).abs().max())
+    bound = RING_ULPS * float(torch.finfo(torch.float32).eps) * max(1.0, scale)
+    if not err <= bound:
+        fail(f"{label}: {name} differs from the CPU's by {err!r} (bound {bound:.3g})")
+    return err
+
+
+def device_replay_phase(cart_replay, c4_replay, kernels, host_train_s):
+    """Phases 15d and 15e."""
+    import numpy as np
+
+    from muzero_general_tpu_torch import MuZero
+    from muzero_general_tpu_torch import muzero as muzero_lib
+    from muzero_general_tpu_torch.games import cartpole
+    from muzero_general_tpu_torch.ops import device_replay as dr
+    from muzero_general_tpu_torch.ops import mcts_fused
+    from muzero_general_tpu_torch.trainer import Learner
+
+    t_phase = time.perf_counter()
+    # ---- 15d. the ring, batches and a device train round, card against CPU ---
+    for label, buf in (("cartpole", cart_replay), ("connect4", c4_replay)):
+        cfg = buf.config
+        games = [buf.buffer[k] for k in sorted(buf.buffer)]
+        capacity = min(int(cfg.replay_buffer_size), len(games))
+        (card, card_s), (cpu, cpu_s) = ring_pair(cfg, games, capacity)
+        scale = float(cpu.root_values.abs().max()) + float(cpu.rewards.abs().sum(1).max())
+        errs = {name: ring_close(f"15d {label} ring", name, getattr(card, name),
+                                 getattr(cpu, name), scale) for name in dr.DeviceReplay._fields}
+        gen = torch.Generator().manual_seed(5)
+        B, U, A = cfg.batch_size, cfg.num_unroll_steps, len(cfg.action_space)
+        slots, pos, _, _ = dr.sample_indices(cpu, gen, B, use_per=bool(cfg.PER))
+        draws = {"slots": slots, "pos": pos,
+                 "fill_actions": torch.randint(0, A, (B, U + 1), generator=gen)}
+        kw = dict(num_unroll_steps=U, td_steps=cfg.td_steps, discount=cfg.discount,
+                  num_actions=A, num_stacked=cfg.stacked_observations, use_per=bool(cfg.PER))
+        batches = [dr.get_batch(ring, None, B, draws={k: v.to(dev) for k, v in draws.items()},
+                                **kw) for ring, dev in ((card, "cuda"), (cpu, "cpu"))]
+        (ib_card, b_card), (ib_cpu, b_cpu) = batches
+        if not torch.equal(ib_card.cpu(), ib_cpu):
+            fail(f"15d {label}: index batches differ")
+        berrs = {k: ring_close(f"15d {label} batch", k, b_card[k], b_cpu[k], scale)
+                 for k in b_cpu}
+        log(f"[device replay {label}] {len(games)} games of phase {'3d' if label == 'cartpole' else '4b'} "
+            f"into rings of {capacity} (max_moves {cfg.max_moves}): save_games card "
+            f"{card_s * 1e3:.1f} ms, CPU {cpu_s * 1e3:.1f} ms; ring card vs CPU: every field "
+            f"equal but priorities {errs['priorities']:.3g}, game priorities "
+            f"{errs['game_priority']:.3g}; batch {B} x {U + 1} on forced draws: equal but "
+            f"values {berrs['target_value']:.3g}, IS weights {berrs['weight']:.3g} (bound "
+            f"{RING_ULPS} ulps of {max(1.0, scale):.4g})")
+
+    # One device train round at M = 8 from the shipped cartpole checkpoint and
+    # its Adam state, on forced draws.
+    cfg = cart_replay.config
+    games = [cart_replay.buffer[k] for k in sorted(cart_replay.buffer)]
+    (card_ring, _), (cpu_ring, _) = ring_pair(cfg, games, int(cfg.replay_buffer_size))
+    card_l, cpu_l = learner_pair(cfg, CART_CHECKPOINT)
+    M, B, U, A = 8, cfg.batch_size, cfg.num_unroll_steps, len(cfg.action_space)
+    gen = torch.Generator().manual_seed(8)
+    draws = []
+    for _ in range(M):
+        slots, pos, _, _ = dr.sample_indices(cpu_ring, gen, B)
+        draws.append({"slots": slots, "pos": pos,
+                      "fill_actions": torch.randint(0, A, (B, U + 1), generator=gen)})
+    targets = [dr.get_batch(cpu_ring, None, B, draws=d, num_unroll_steps=U,
+                            td_steps=cfg.td_steps, discount=cfg.discount, num_actions=A,
+                            num_stacked=cfg.stacked_observations)[1]["target_value"]
+               for d in draws]
+    scale = max(float(t.abs().max()) for t in targets)
+    copies = {"n": 0}
+    on_device = Learner._on_device
+
+    def counted(self, batch):
+        copies["n"] += 1
+        return on_device(self, batch)
+
+    Learner._on_device = counted
+    try:
+        t0 = time.perf_counter()
+        m_cpu = dr.make_device_train(cpu_l, cfg, M)(cpu_ring, None, draws=draws)
+        cpu_s = time.perf_counter() - t0
+        card_draws = [{k: v.to("cuda") for k, v in d.items()} for d in draws]
+        round_fn = dr.make_device_train(card_l, cfg, M)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_card = round_fn(card_ring, None, draws=card_draws)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    finally:
+        Learner._on_device = on_device
+    if copies["n"]:
+        fail(f"15d: the device train round copied {copies['n']} batches from the host")
+    tol = LEARN_F32
+    loss_err = 0.0
+    for key in ("total_loss", "value_loss", "reward_loss", "policy_loss"):
+        got, want = float(m_card[key]), float(m_cpu[key])
+        if not abs(got - want) <= tol["loss_rtol"] * abs(want):
+            fail(f"15d device train: {key} {got!r} on the card, {want!r} on the CPU")
+        loss_err = max(loss_err, abs(got - want) / abs(want))
+    alpha = cfg.PER_alpha
+    gap = (card_ring.priorities.cpu().double() ** (1 / alpha)
+           - cpu_ring.priorities.double() ** (1 / alpha)).abs()
+    if float(gap.max()) > tol["gap_tol"] * max(scale, 1.0):
+        fail(f"15d device train: ring priorities' |value - target| differ by "
+             f"{float(gap.max())!r}")
+    worst, _ = compare_learner_states("15d device train", card_l, cpu_l, tol["stats_tol"],
+                                      tol["close"], moments=True)
+    log(f"[device replay train] make_device_train at M = {M}, batch {B}, unroll {U}, from the "
+        f"shipped cartpole checkpoint and Adam state, forced draws: card {card_s * 1e3:.1f} ms "
+        f"(host clock, first call), CPU {cpu_s:.2f} s; losses within {loss_err:.3g} relative "
+        f"(bound {tol['loss_rtol']}), "
+        f"ring priorities' |value - target| within {float(gap.max()):.3g} (bound "
+        f"{tol['gap_tol']} x {max(scale, 1.0):.4g}), params within {worst:.3g}, Adam moments "
+        f"as the CPU's; 0 batches copied from the host")
+    log(f"[done] 15d after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 15e. train() with device replay at the shipped width -----------------
+    import shutil
+
+    root = REPO / "results" / "chip_smoke" / "device_replay"
+    shutil.rmtree(root, ignore_errors=True)
+    mz = MuZero("cartpole", {"training_steps": 400, "device_replay": True,
+                             "results_path": str(root)})
+    if int(mz.config.fused_train_steps) != 8 or mz.config.parallel_games != 16:
+        fail("15e: not cartpole's shipped config")
+    counts = {"round_copies": 0, "single": 0, "rounds": 0, "sweeps": 0, "mirrored": 0}
+    in_round = {"on": False}
+    train_step, train_round = Learner.train_step, muzero_lib.DeviceRing.train_round
+    on_reanalysed = muzero_lib.DeviceRing.on_reanalysed
+    sweep = muzero_lib.MuZero._reanalyse_sweep
+
+    def counted_copy(self, batch):
+        if in_round["on"]:
+            counts["round_copies"] += 1
+        return on_device(self, batch)
+
+    def counted_single(self, batch):
+        counts["single"] += 1
+        return train_step(self, batch)
+
+    def counted_round(self):
+        counts["rounds"] += 1
+        in_round["on"] = True
+        try:
+            return train_round(self)
+        finally:
+            in_round["on"] = False
+
+    def counted_mirror(self, game_id, values):
+        counts["mirrored"] += 1
+        return on_reanalysed(self, game_id, values)
+
+    def counted_sweep(self, *args, on_update=None, **kwargs):
+        if on_update is not None:
+            counts["sweeps"] += 1
+        return sweep(self, *args, on_update=on_update, **kwargs)
+
+    Learner._on_device, Learner.train_step = counted_copy, counted_single
+    muzero_lib.DeviceRing.train_round = counted_round
+    muzero_lib.DeviceRing.on_reanalysed = counted_mirror
+    muzero_lib.MuZero._reanalyse_sweep = counted_sweep
+    mcts_fused.search.launches = 0
+    try:
+        ck, train_s = timed_train(mz)
+    finally:
+        Learner._on_device, Learner.train_step = on_device, train_step
+        muzero_lib.DeviceRing.train_round = train_round
+        muzero_lib.DeviceRing.on_reanalysed = on_reanalysed
+        muzero_lib.MuZero._reanalyse_sweep = sweep
+    launches = mcts_fused.search.launches
+    ring = mz.device_ring
+    if (ck["training_step"] != 400 or ring is None or not counts["rounds"] or launches == 0
+            or counts["round_copies"]):
+        fail(f"15e: train() ended at {ck['training_step']}, ring {ring is not None}, counts "
+             f"{counts}, fused-search launches {launches}")
+    if counts["rounds"] * 8 + counts["single"] != 400:
+        fail(f"15e: {counts['rounds']} device rounds and {counts['single']} host steps for "
+             f"400 steps")
+    state = ring.state
+    if int(state.num_played_games) != ck["num_played_games"]:
+        fail(f"15e: the ring holds {int(state.num_played_games)} games, the host buffer "
+             f"{ck['num_played_games']}")
+    if not all(np.isfinite(ck[k]) for k in ("total_loss", "value_loss", "policy_loss")):
+        fail("15e: non-finite losses")
+    if ck["num_reanalysed_games"] and not counts["mirrored"]:
+        fail("15e: reanalyse refreshed games but none reached the ring")
+    next(k for k in kernels if k["name"] == "mcts_fused_search")[
+        "cartpole_device_replay_train_launches"] = launches
+    pt = mz.phase_time
+    log(f"[muzero cartpole device replay] train() 400 steps, device_replay on (16 lanes x 50 "
+        f"sims, batch 128, unroll 10, M = 8) in {train_s:.2f} s: {400 / train_s:.3f} train "
+        f"steps/s (13a's host replay in this run: {400 / host_train_s:.3f}), "
+        f"{ck['num_played_steps'] / train_s:.1f} env-steps/s; {counts['rounds']} device rounds "
+        f"of 8 steps, {counts['single']} single host steps (the remainders below M, as in "
+        f"JAX); host-to-card batch copies in the device rounds: {counts['round_copies']}; "
+        f"reanalyse: {counts['sweeps']} sweeps, {counts['mirrored']} games mirrored into the "
+        f"ring ({ck['num_reanalysed_games']} refreshed); the ring holds "
+        f"{int((state.game_len > 0).sum())} games, {int(state.total_samples)} positions; "
+        f"fused-search launches {launches}; batch phase {pt['batch']:.4f} s")
+    log(f"[muzero cartpole device replay] phase split: {phase_split(pt, train_s)}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[done] 15d-15e in {seconds:.1f} s")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3030,9 +3582,12 @@ def main():
     log(f"[done] bf16 lanes after {time.perf_counter() - t_start:.1f} s")
     fused_entry["learn_loop_launches"] = learner_phase(cart_replay, c4_replay)
     log(f"[done] learner after {time.perf_counter() - t_start:.1f} s")
-    orchestration_phase(kernels)
+    host_train = orchestration_phase(kernels)
     log(f"[done] orchestration after {time.perf_counter() - t_start:.1f} s")
     remaining_games_phase(kernels)
+    log(f"[done] remaining games after {time.perf_counter() - t_start:.1f} s")
+    gumbel_phase()
+    device_replay_phase(cart_replay, c4_replay, kernels, host_train["train_s"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

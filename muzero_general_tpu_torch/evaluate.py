@@ -11,7 +11,9 @@ logic (random, human) or the env's batched expert on a one-game batch.
   port's copy of the JAX block gate decides the route, as JAX's does: at
   batch 1 no lane block fits, so the search runs on the plain-op route on
   any device (the kernels want >= 8 lanes a block; the stream route wants
-  8 lanes).
+  8 lanes). Under `use_gumbel_mcts` it is the deterministic greedy Gumbel
+  search (ops/gumbel.py, `add_gumbel=False`; JAX :25-41), whose
+  `greedy_action` MuZero plays (JAX :147-149).
 - `play_against_opponent` is :63-192. The random opponent draws from
   np.random.default_rng(seed) exactly as JAX does, so a random-opponent
   game is comparable move for move; the expert and the env's reset draw
@@ -20,13 +22,14 @@ logic (random, human) or the env's batched expert on a one-game batch.
   it.
 - `manual_game` is :195-221, device-env branch.
 
-Not ported, and refused with NotImplementedError: the Gumbel search
-(:25-41; ROADMAP queue 1 item 6) and host envs (:77-97; item 8).
+Not ported, and refused with NotImplementedError: host envs (:77-97;
+ROADMAP queue 1 item 8).
 """
 
 import numpy as np
 import torch
 
+from muzero_general_tpu_torch.ops import gumbel as gumbel_ops
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
 from muzero_general_tpu_torch.ops.stacking import stack_observations_np
 from muzero_general_tpu_torch.replay import GameHistory
@@ -34,11 +37,21 @@ from muzero_general_tpu_torch.replay import GameHistory
 
 def _mcts_policy_fn(network, config, device):
     """The batch-1 search: (obs [1, ...], legal [1, A], to_play [1],
-    generator) -> MCTSOutput, with root noise on (JAX evaluate.py:49-56)."""
+    generator) -> MCTSOutput, with root noise on (JAX evaluate.py:49-56);
+    under use_gumbel_mcts, GumbelMCTSOutput without the Gumbel draw (JAX
+    :25-41)."""
     if getattr(config, "use_gumbel_mcts", False):
-        raise NotImplementedError(
-            "the Gumbel evaluation search is not ported yet (ROADMAP queue 1 item 6)"
-        )
+        gspec = gumbel_ops.GumbelSpec.from_config(config)
+
+        @torch.no_grad()
+        def gumbel_search(obs, legal, to_play, generator):
+            return gumbel_ops.run_gumbel_mcts(
+                network.initial_inference, network.recurrent_inference, obs, legal,
+                to_play, generator, gspec, add_gumbel=False,
+            )
+
+        gumbel_search.spec = gspec
+        return gumbel_search
     spec = mcts_ops.SearchSpec.from_config(config, batch_size=1, device=device)
 
     @torch.no_grad()
@@ -107,7 +120,10 @@ def play_against_opponent(env, network, config, opponent, muzero_player, seed=0,
                 torch.full((1,), to_play, dtype=torch.int32, device=device), generator,
             )
             visits = out.root_visit_counts[0].cpu().numpy()
-            action = int(np.argmax(np.where(legal[0], visits, -1)))
+            if isinstance(out, gumbel_ops.GumbelMCTSOutput):
+                action = int(out.greedy_action[0])
+            else:
+                action = int(np.argmax(np.where(legal[0], visits, -1)))
             child_visits.append(visits / max(1, visits.sum()))
             root_value = float(out.root_value[0])
             root_values.append(root_value)

@@ -18,11 +18,20 @@ What of the JAX package's muzero.py is where:
   :178-216 with the value function of :447-452; `train` is `train`/`_train`
   :219-753 and `test` is `test`/`_test` :756-808; `terminate_workers` :811;
   `load_model` :818-836; `load_model_menu` :862-882; `main` :885-939.
+- Device replay (ops/device_replay.py) engages where JAX's does
+  (:380-446): `device_replay` with `fused_train_steps` > 1 (the port has
+  one process and no mesh). The completed games go to the ring on the card
+  each loop in padded chunks of _DEV_K_PAD (:523-526); a train round of M
+  steps then samples, trains and writes priorities back there (:594-606),
+  and reanalyse mirrors its fresh values into the ring (:657-663). The
+  host buffer keeps the counters, the checkpoints and reanalyse; its
+  priorities are not written on that path, as in JAX.
+- The Gumbel search (`use_gumbel_mcts`) runs in the self-play driver and in
+  evaluate.py.
 - Raised with NotImplementedError, naming the ROADMAP queue 1 item that
   will lift it: `split_resources_in` > 1, `devices`, `distributed`, a
   mesh (`mesh_dp`/`mesh_mp` > 1) and `hyperparameter_search` (item 9);
-  `device_replay` where JAX engages it (item 7); host envs (item 8); the
-  Gumbel search (item 6, in the self-play driver and in evaluate.py).
+  host envs (item 8).
 - `diagnose_model` :839-847 runs diagnose.py's DiagnoseModel on the
   checkpoint's weights.
 - The mesh and multi-host code of `_train` (:244-313, :326-349, :453-466)
@@ -43,6 +52,7 @@ from muzero_general_tpu_torch import config as config_lib
 from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.logger import MetricsLogger
 from muzero_general_tpu_torch.models import MuZeroNetwork, params_from_jax, params_to_jax
+from muzero_general_tpu_torch.ops import device_replay as dr_lib
 from muzero_general_tpu_torch.ops.support import support_to_scalar
 from muzero_general_tpu_torch.replay import GameHistory, ReplayBuffer
 from muzero_general_tpu_torch.selfplay import SelfPlayDriver
@@ -66,6 +76,52 @@ def two_player_reward_split(gh: GameHistory, muzero_player: int):
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+
+
+# Completed games go to the device ring in chunks of this many (one padded
+# save_games shape across loops; JAX muzero.py:388).
+_DEV_K_PAD = 8
+
+
+class DeviceRing:
+    """Device replay in the training loop (JAX muzero.py:380-446): the ring
+    on `device`, its fused train round for `learner` and its generator,
+    seeded config.seed + 987654."""
+
+    def __init__(self, config, learner, device):
+        cfg = self.config = config
+        self.device = device
+        self.M = max(1, int(cfg.fused_train_steps))
+        self.state = dr_lib.init_replay(int(cfg.replay_buffer_size), int(cfg.max_moves),
+                                        tuple(cfg.observation_shape), len(cfg.action_space),
+                                        device)
+        self.train = dr_lib.make_device_train(learner, cfg, self.M)
+        self.generator = torch.Generator(device=device).manual_seed(cfg.seed + 987654)
+
+    def push(self, games):
+        """Save completed host games into the ring (JAX :417-428)."""
+        cfg = self.config
+        for chunk, valid in dr_lib.pad_games_np(games, int(cfg.max_moves),
+                                                tuple(cfg.observation_shape),
+                                                len(cfg.action_space), _DEV_K_PAD):
+            dr_lib.save_games(
+                self.state, {k: torch.from_numpy(v).to(self.device) for k, v in chunk.items()},
+                torch.from_numpy(valid).to(self.device), td_steps=cfg.td_steps,
+                discount=cfg.discount, per_alpha=cfg.PER_alpha, use_per=bool(cfg.PER))
+
+    def train_round(self):
+        """M sampled batches, M learner steps, the write-backs: the last
+        step's metrics."""
+        return self.train(self.state, self.generator)
+
+    def on_reanalysed(self, game_id, values):
+        """Mirror a game's fresh root values into its slot, padded to
+        max_moves, where the slot still holds it (JAX :434-446)."""
+        padded = np.zeros((int(self.config.max_moves),), np.float32)
+        padded[: len(values)] = values
+        dr_lib.update_reanalysed_values(
+            self.state, game_id % int(self.config.replay_buffer_size), game_id,
+            torch.from_numpy(padded).to(self.device))
 
 
 @torch.no_grad()
@@ -127,8 +183,10 @@ class MuZero:
         # The initial weights, so the checkpoint is complete before training
         # (counterpart of reference CPUActor.get_initial_weights, muzero.py:120-122).
         self.checkpoint["weights"] = params_to_jax(self.network)
-        # The last train() run's per-phase wall clock, in seconds.
+        # The last train() run's per-phase wall clock, in seconds, and its
+        # device ring (None without device replay).
         self.phase_time = None
+        self.device_ring = None
 
     # ------------------------------------------------------------------
     def _restore_state(self) -> Learner:
@@ -148,15 +206,15 @@ class MuZero:
                               greedy_lanes=greedy_lanes, device=self.device)
 
     # ------------------------------------------------------------------
-    def _reanalyse_sweep(self, replay, network):
+    def _reanalyse_sweep(self, replay, network, on_update=None):
         """Batched value refresh (reference Reanalyse actor,
         replay_buffer.py:328-373, re-designed as scheduled sweeps).
 
         Refreshes up to config.reanalyse_games_per_interval games round-robin
         with `network`'s values, in chunks of reanalyse_chunk_positions
-        positions (the last one not padded: nothing is compiled). JAX's
-        on_update hook mirrors the values into device replay, which is not
-        ported (ROADMAP queue 1 item 7). Returns the number of games
+        positions (the last one not padded: nothing is compiled).
+        on_update(game_id, values) sees each refreshed game's values (device
+        replay mirrors them into its ring). Returns the number of games
         refreshed.
         """
         cfg = self.config
@@ -176,6 +234,8 @@ class MuZero:
         off = 0
         for (gid, _), length in zip(picked, lengths):
             replay.update_reanalysed_values(gid, out[off : off + length])
+            if on_update is not None:
+                on_update(gid, out[off : off + length])
             off += length
         return len(picked)
 
@@ -184,10 +244,6 @@ class MuZero:
         cfg = self.config
         if int(cfg.mesh_dp or 1) > 1 or int(cfg.mesh_mp or 1) > 1:
             raise _not_ported("a device mesh (mesh_dp, mesh_mp)", 9)
-        if getattr(cfg, "device_replay", False) and int(cfg.fused_train_steps or 1) > 1:
-            # Where JAX engages it (muzero.py:389-395): ignoring it here
-            # would be a hidden fallback to host replay.
-            raise _not_ported("device replay (device_replay)", 7)
 
     def train(self, log_in_tensorboard=True):
         """Synchronous actor-learner training (reference muzero.py:132-208;
@@ -236,6 +292,14 @@ class MuZero:
                 return prefetcher.take(n)
             return [replay.get_batch() for _ in range(n)]
 
+        M = max(1, int(cfg.fused_train_steps))
+        # Device replay where JAX engages it (muzero.py:389-395; one process
+        # and no mesh here): the train round samples, trains and writes its
+        # priorities back on the card.
+        ring = (DeviceRing(cfg, learner, self.device)
+                if getattr(cfg, "device_replay", False) and M > 1 else None)
+        self.device_ring = ring
+
         training_step = self.checkpoint["training_step"]
         print(f"\nTraining {self.game_name} on {self.device}...\n")
         # Cooperative shutdown: the reference polls a `terminate` flag in
@@ -252,7 +316,6 @@ class MuZero:
         last_ckpt_step = training_step
         last_metrics = None
         profiler = None
-        M = max(1, int(cfg.fused_train_steps))
         try:
             while training_step < cfg.training_steps:
                 if self.checkpoint["terminate"] or stop_file.exists():
@@ -274,6 +337,8 @@ class MuZero:
                 phase_time["selfplay"] += time.time() - t0
                 for gh in games:
                     replay.save_game(gh)
+                if ring is not None and games:
+                    ring.push(games)
 
                 # ---- evaluation (reference test_mode worker) --------------
                 t0 = time.time()
@@ -321,7 +386,14 @@ class MuZero:
                 while training_step < target and buffer_ready:
                     t0 = time.time()
                     prev_step = training_step
-                    if target - training_step >= M > 1:
+                    if ring is not None and target - training_step >= M > 1:
+                        # Device replay: sampling, M steps and the
+                        # write-backs on the card, no host batches.
+                        phase_time["batch"] += time.time() - t0
+                        t0 = time.time()
+                        metrics = ring.train_round()
+                        training_step += M
+                    elif target - training_step >= M > 1:
                         # Fused path: M batches, one call.
                         parts = next_batches(M)
                         index_batches = [ib for ib, _ in parts]
@@ -350,7 +422,9 @@ class MuZero:
                         > (prev_step // cfg.reanalyse_interval)
                         and replay.buffer
                     ):
-                        n = self._reanalyse_sweep(replay, learner.network)
+                        n = self._reanalyse_sweep(
+                            replay, learner.network,
+                            on_update=ring.on_reanalysed if ring is not None else None)
                         self.checkpoint["num_reanalysed_games"] += n
                     phase_time["reanalyse"] += time.time() - t0
                     last_metrics = metrics

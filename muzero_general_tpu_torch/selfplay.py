@@ -20,12 +20,22 @@ norms are folded into its convs once per play_chunk (`fold_bn_inference`),
 the folded twin's activations in bfloat16 when `search_bf16_activations` is
 on; the network computes at `compute_dtype`, as in the JAX driver.
 
+Under `use_gumbel_mcts` every network runs the Gumbel search
+(ops/gumbel.py run_gumbel_mcts) on the "staged" route, as the JAX driver
+turns its fused search off under Gumbel (JAX selfplay.py:99-104): no kernel
+runs on it. Its improved policy is the policy target; lanes play the
+search's Gumbel-sampled action, or its greedy action past
+`temperature_threshold` and at temperature 0 (JAX selfplay.py:181-197).
+Exploration comes from the root Gumbel draw (gated by `add_noise`), drawn
+from the driver's generator through `gumbel.sample_gumbel`, which tests
+replace to inject the JAX driver's draws, as they replace
+`mcts.sample_gamma` on the pUCT route.
+
 Evaluation is folded in as greedy lanes: lanes [0, greedy_lanes) play at
 temperature 0 inside the same batch and their episodes come back in
 stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
 
-Not ported yet, and refused with NotImplementedError: Gumbel search (ROADMAP
-queue 1 item 6). The mesh/dp sharding of lanes (item 9) is not ported either.
+The mesh/dp sharding of lanes (ROADMAP queue 1 item 9) is not ported.
 """
 
 import logging
@@ -38,6 +48,7 @@ from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.envs.core import where_state
 from muzero_general_tpu_torch.models import activation_dtype, fold_bn
 from muzero_general_tpu_torch.models.resnet import ResMuZero
+from muzero_general_tpu_torch.ops import gumbel as gumbel_ops
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
 from muzero_general_tpu_torch.ops import mcts_fused
 from muzero_general_tpu_torch.ops.stacking import (
@@ -57,10 +68,11 @@ def search_route(config, device: torch.device) -> str:
     The fused single-kernel search takes FC networks (use_fused_search
     "auto" and True) whose search fits the kernel's shared memory
     (mcts_fused.fits_kernel) on the card; on the CPU its plain version has
-    no such limit. False, every ResNet, and FC searches too big for the
-    kernel run the staged search."""
+    no such limit. False, every ResNet, FC searches too big for the kernel
+    and the Gumbel search run staged."""
     fused = (
         config.network == "fullyconnected"
+        and not config.use_gumbel_mcts
         and config.use_fused_search is not False
         and (device.type == "cpu" or mcts_fused.fits_kernel(config))
     )
@@ -95,22 +107,20 @@ class SelfPlayDriver:
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, driver on {self.device}")
-        if config.use_gumbel_mcts:
-            raise NotImplementedError(
-                "Gumbel search is not ported yet (ROADMAP queue 1 item 6; module item 16 "
-                "in the older numbering)"
-            )
         self.env = env
         self.network = network
         self.config = config
         self.G = num_games or config.parallel_games
         self.greedy_lanes = greedy_lanes
         self.spec = mcts_ops.SearchSpec.from_config(config, self.G, self.device)
+        self.use_gumbel = bool(config.use_gumbel_mcts)
+        if self.use_gumbel:
+            self.gumbel_spec = gumbel_ops.GumbelSpec.from_config(config)
         self.search_route = search_route(config, self.device)
         self.use_fused = self.search_route == "fused"
-        _log.info("self-play search route: %s (%s, %d simulations, %s)",
-                  self.search_route, config.network, config.num_simulations,
-                  self.device)
+        _log.info("self-play search route: %s (%s%s, %d simulations, %s)",
+                  self.search_route, config.network, ", Gumbel" if self.use_gumbel else "",
+                  config.num_simulations, self.device)
         if self.use_fused:
             self.fused_spec = mcts_fused.FusedSpec.from_config(config)
         # BN folding for the search path (ResNet only), once per play_chunk.
@@ -152,15 +162,10 @@ class SelfPlayDriver:
         self._carry = SelfPlayCarry(states, obs_hist, act_hist, move_count)
         self._pending = [[] for _ in range(self.G)]
 
-    def _one_move(self, carry, temperature, add_noise, net):
-        """One move of every lane. `net`: the packed FusedWeights on the
-        fused route, else the (folded) network the staged search runs."""
-        env, config = self.env, self.config
-        stacked = stack_observations(carry.obs_hist, carry.act_hist, self.A)
-        legal = env.legal_actions_mask(carry.env_state)
-        to_play = env.to_play(carry.env_state)
-        seed = int(torch.randint(0, 2**31 - 1, (1,),
-                                 generator=self._seed_generator))
+    def _puct_move(self, carry, stacked, legal, to_play, temperature, add_noise, net):
+        """The pUCT search of one move and its sampled actions: (policy
+        target, action, search output)."""
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self._seed_generator))
         if self.use_fused:
             out = mcts_fused.run_mcts_fused(
                 self.network, stacked, legal, to_play, self.generator,
@@ -179,13 +184,39 @@ class SelfPlayDriver:
         action = mcts_ops.select_action(
             self.generator, out.root_visit_counts, legal, temperature
         )
-        threshold = config.temperature_threshold
+        threshold = self.config.temperature_threshold
         if threshold:
             a_cold = mcts_ops.select_action(
                 self.generator, out.root_visit_counts, legal, 0.0
             )
             action = torch.where(carry.move_count < threshold, action, a_cold)
+        return policy_target, action, out
 
+    def _one_move(self, carry, temperature, add_noise, net):
+        """One move of every lane. `net`: the packed FusedWeights on the
+        fused route, else the (folded) network the staged or Gumbel search
+        runs."""
+        env, config = self.env, self.config
+        stacked = stack_observations(carry.obs_hist, carry.act_hist, self.A)
+        legal = env.legal_actions_mask(carry.env_state)
+        to_play = env.to_play(carry.env_state)
+        if self.use_gumbel:
+            out = gumbel_ops.run_gumbel_mcts(
+                net.initial_inference, net.recurrent_inference, stacked, legal, to_play,
+                self.generator, self.gumbel_spec, add_gumbel=add_noise,
+            )
+            policy_target = out.improved_policy
+            # Exploration comes from the root Gumbel draw: lanes play the
+            # search's action, or its greedy one past temperature_threshold
+            # and at temperature 0 (JAX selfplay.py:181-197).
+            threshold = config.temperature_threshold
+            cold = temperature <= 0
+            if threshold:
+                cold = cold | (carry.move_count >= threshold)
+            action = torch.where(cold, out.greedy_action, out.action)
+        else:
+            policy_target, action, out = self._puct_move(carry, stacked, legal, to_play,
+                                                         temperature, add_noise, net)
         states2, reward, done = env.step(carry.env_state, action, self.generator)
         # Enforce max_moves so host episode cuts and env resets stay in
         # lockstep (reference self_play.py:129-131).

@@ -500,16 +500,21 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MuZero("cartpole")
     base = dict(OVR, results_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MuZero("cartpole", dict(base, device_replay=True, fused_train_steps=8),
-               device="cpu").train(log_in_tensorboard=False)
     with pytest.raises(NotImplementedError, match="item 9"):
         MuZero("cartpole", dict(base, mesh_dp=2), device="cpu").train(log_in_tensorboard=False)
-    mz = MuZero("cartpole", dict(base, use_gumbel_mcts=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Gumbel"):
-        mz.train(log_in_tensorboard=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluate.play_against_opponent(mz.make_env(), mz.network, mz.config, "self", 0)
+    # Device replay (item 7) and the Gumbel search (item 6) are ported
+    # (tests/test_torch_device_replay.py, tests/test_torch_gumbel.py): device
+    # replay engages where JAX engages it and nowhere else.
+    mz = MuZero("cartpole", dict(base, device_replay=True, fused_train_steps=8, batch_size=4,
+                                 training_steps=2), device="cpu")
+    assert mz.train(log_in_tensorboard=False)["training_step"] == 2
+    assert mz.device_ring is not None
+    mz = MuZero("cartpole", dict(base, device_replay=True), device="cpu")  # fused_train_steps 1
+    mz.train(log_in_tensorboard=False)
+    assert mz.device_ring is None
+    mz = MuZero("cartpole", dict(base, use_gumbel_mcts=True, max_moves=4), device="cpu")
+    game = evaluate.play_against_opponent(mz.make_env(), mz.network, mz.config, "self", 0)
+    assert 1 <= len(game) <= 4
     with pytest.raises(NotImplementedError, match="item 9"):
         port_muzero.hyperparameter_search("cartpole", None, 20, 1, 10)
     mz = MuZero("cartpole", dict(base), device="cpu")
@@ -555,6 +560,8 @@ def test_port_and_card_scripts_import_nothing_of_jax():
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py",
               REPO / "tests" / "test_torch_e2e_learning.py"]
     assert len(files) > 40
+    for module in ("gumbel", "device_replay"):
+        assert REPO / "muzero_general_tpu_torch" / "ops" / f"{module}.py" in files
     for path in files:
         found = _FORBIDDEN & set(_imports(path))
         assert not found, f"{path.relative_to(REPO)} imports {sorted(found)}"

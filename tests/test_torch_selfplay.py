@@ -125,9 +125,13 @@ def test_driver_rejects_what_is_not_ported():
     driver = SelfPlayDriver(env, net, cfg, device="cpu")
     assert not driver.use_fused and not driver.spec.use_kernels
     cfg.use_fused_search = "auto"
+    # The Gumbel search is ported (tests/test_torch_gumbel.py): it takes the
+    # staged route on any device, as the JAX driver turns its fused search
+    # off under Gumbel.
     cfg.use_gumbel_mcts = True
-    with pytest.raises(NotImplementedError, match="item 16"):
-        SelfPlayDriver(env, net, cfg, device="cpu")
+    driver = SelfPlayDriver(env, net, cfg, device="cpu")
+    assert (driver.search_route, driver.use_fused, driver.use_gumbel) == ("staged", False, True)
+    assert search_route(cfg, torch.device("cuda")) == "staged"
     cfg.use_gumbel_mcts = False
     # Multi-leaf rounds: FC nets on the fused search ignore K, as the JAX
     # driver does; the staged search takes it.
