@@ -209,12 +209,37 @@ In order, it:
       split, the device rounds and single host steps, host-to-card batch
       copies in the rounds (must be 0), reanalyse sweeps mirrored into the
       ring, and kernel 1's launches in its self-play;
-16. prints one {"kernels": [...]} JSON line (the fused search's entry with
+16. the host-env path (hostplay.py) on numpy stand-ins with the host
+   games' shapes (this machine has no gymnasium, cv2, ale-py or pyspiel),
+   and the hyperparameter search (search.py):
+   a. lunarlander's shipped width (FC, encoding 10, 64-wide, support 10;
+      16 lanes x 50 simulations, chunks of 8 moves) on a seeded stand-in
+      with (1, 1, 8) observations and 4 actions, host_pipeline off and on:
+      the first move's every planar descent and backprop launch held
+      against its plain version, then 2 timed chunks (ms a move,
+      env-steps/s, launches: one per simulation of each dispatch) and one
+      move profiled (launches per simulation, the card's busy share);
+   b. MuZero("lunarlander", {"training_steps": 16}).train() with make_env
+      swapped for the stand-in, then test() at G = 1 (the host driver) and
+      test(opponent="random") (evaluate.py's host branch), one game each;
+   c. spiel's two-player 1 x 16 ResNet (16 lanes x 25 simulations) on a
+      numpy tic-tac-toe with pyspiel's surface, through SpielGame(game=...):
+      one chunk, every launch held against its plain version;
+   d. atari's network at its shipped width (the downsample ResNet, 16
+      blocks x 256 channels, 32 stacked frames, support 300, bf16) on 350
+      lanes x 50 simulations of seeded (3, 96, 96) frames: one move with
+      every launch checked, one timed and one profiled;
+   e. one_plus_one_search on cartpole, budget 2, parallel_experiments 2,
+      tiny candidates: on one card the slices collide and the candidates
+      run one after the other; their scores and the best;
+17. prints one {"kernels": [...]} JSON line (the fused search's entry with
    its train() and test() launches and 15e's under
-   "cartpole_device_replay_train_launches", the planar kernels' with
-   connect4's train() launches, each with the launches of phase 14's games
-   under "<game>_selfplay_launches", "<game>_train_launches" and
-   "<game>_test_launches"), then ends with {"ok": true, "device": {...}}.
+   "cartpole_device_replay_train_launches" and 16e's under
+   "hyperparameter_search_launches", the planar kernels' with connect4's
+   train() launches, each with the launches of phase 14's games under
+   "<game>_selfplay_launches", "<game>_train_launches" and
+   "<game>_test_launches" and phase 16's under "<game>_host_*_launches"),
+   then ends with {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
 phase fails. It imports nothing of JAX.
@@ -2525,7 +2550,7 @@ def learner_phase(cart_replay, c4_replay):
 
 
 class CheckedLaunches:
-    """Within `with`, each launch of the search kernels of phases 13 and 14
+    """Within `with`, each launch of the search kernels of phases 13, 14 and 16
     (the fused search, the planar descent, the backprop), up to
     `check_first` of each, is held against its plain version on copies of
     the same inputs: the fused search's visits and depth exactly and values
@@ -3544,6 +3569,368 @@ def device_replay_phase(cart_replay, c4_replay, kernels, host_train_s):
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# The host-env path (hostplay.py) on numpy stand-ins of the host games, and
+# the hyperparameter search (search.py)
+# ---------------------------------------------------------------------------
+
+# Phase 16d's lanes: atari's shipped parallel_games.
+ATARI_LANES = 350
+# The stand-in lander's episodes end after this many moves, so that 16b's
+# train() completes games within its first chunks and its two test() games,
+# B = 1 searches on the plain-op route (~14 ms a simulation, host-bound),
+# end within ~15 s each.
+LANDER_EPISODE = 20
+
+
+def host_stand_ins():
+    """Numpy stand-ins with the host games' shapes, their dynamics drawn
+    from seeded numpy generators (this machine has no gymnasium, cv2,
+    ale-py or pyspiel): (lunarlander's env, a pyspiel-surface tic-tac-toe
+    game for SpielGame(game=...), an ALE-shaped frame env)."""
+    import numpy as np
+
+    from muzero_general_tpu_torch.envs.host import HostEnv
+
+    class Lander(HostEnv):
+        """(1, 1, 8) observations, 4 actions, episodes of LANDER_EPISODE moves."""
+
+        observation_shape = (1, 1, 8)
+        num_actions = 4
+
+        def __init__(self, seed=None):
+            self.rng = np.random.default_rng(seed)
+
+        def reset(self):
+            self.state, self.t = self.rng.uniform(-1, 1, 8).astype(np.float32), 0
+            return self.state.reshape(1, 1, 8).copy()
+
+        def step(self, action):
+            push = np.zeros(8, np.float32)
+            push[2 * int(action)] = 0.1
+            self.state = (0.9 * self.state + push
+                          + 0.05 * self.rng.standard_normal(8)).astype(np.float32)
+            self.t += 1
+            reward = float(-np.abs(self.state[:2]).sum() / 3)
+            return self.state.reshape(1, 1, 8).copy(), reward, self.t >= LANDER_EPISODE
+
+    class TicTacToeState:
+        """pyspiel.State surface: tic-tac-toe, observation planes (empty,
+        player 0, player 1) of 3 x 3."""
+
+        def __init__(self):
+            self.board, self.player, self.winner = np.zeros(9, np.int64), 0, None
+
+        def current_player(self):
+            return -4 if self.is_terminal() else self.player  # pyspiel's kTerminal
+
+        def observation_tensor(self, player):
+            return np.stack([self.board == k for k in (0, 1, 2)]).astype(np.float32).ravel()
+
+        def legal_actions(self):
+            return [] if self.is_terminal() else [int(a) for a in np.flatnonzero(self.board == 0)]
+
+        def apply_action(self, action):
+            self.board[action] = self.player + 1
+            b = self.board.reshape(3, 3) == self.player + 1
+            if b.all(0).any() or b.all(1).any() or b.trace() == 3 or np.fliplr(b).trace() == 3:
+                self.winner = self.player
+            self.player ^= 1
+
+        def is_terminal(self):
+            return self.winner is not None or bool((self.board != 0).all())
+
+        def player_return(self, player):
+            return 0.0 if self.winner is None else (1.0 if self.winner == player else -1.0)
+
+    class TicTacToe:
+        """pyspiel.Game surface, tic_tac_toe's shapes."""
+
+        def observation_tensor_shape(self):
+            return [3, 3, 3]
+
+        def policy_tensor_shape(self):
+            return [9]
+
+        def num_players(self):
+            return 2
+
+        def max_game_length(self):
+            return 9
+
+        def new_initial_state(self):
+            return TicTacToeState()
+
+    class Frames(HostEnv):
+        """ALE Breakout's preprocessed shape (3, 96, 96), 4 actions: each
+        frame a seeded random image, episodes of 27,000 moves at most."""
+
+        observation_shape = (3, 96, 96)
+        num_actions = 4
+
+        def __init__(self, seed=None):
+            self.rng = np.random.default_rng(seed)
+
+        def reset(self):
+            self.t = 0
+            return self.rng.random((3, 96, 96), dtype=np.float32)
+
+        def step(self, action):
+            self.t += 1
+            return (self.rng.random((3, 96, 96), dtype=np.float32),
+                    float(self.rng.random() < 0.05), self.t >= 27000)
+
+    return Lander, TicTacToe, Frames
+
+
+def host_profile(label, driver, move_ms, dispatches):
+    """One move of the host driver under torch.profiler: launches per
+    simulation (of one dispatch's search) and the card's busy share of an
+    unprofiled move (`move_ms`)."""
+    rows, wall_ms, _ = device_trace(lambda: driver.play(1.0, num_moves=1))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    launches = sum(r[2] for r in rows)
+    if busy_ms <= 0:
+        log(f"[profile {label}] one move: {wall_ms:.2f} ms wall (profiled); device time: not "
+            "measured (the trace holds none)")
+        return None
+    per_sim = launches / (dispatches * driver.spec.num_simulations)
+    share = 100 * busy_ms / move_ms
+    log(f"[profile {label}] one move: {busy_ms:.3f} ms of device kernels, {launches} launches "
+        f"({per_sim:.1f} per simulation of a dispatch, {dispatches} dispatch(es) a move); "
+        f"{wall_ms:.2f} ms wall profiled; of an unprofiled move ({move_ms:.3f} ms) the card is "
+        f"busy {share:.1f}%, idle {100 - share:.1f}%")
+    for dev_us, key, count in sorted(rows, reverse=True)[:5]:
+        log(f"[profile {label}]   {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    return share
+
+
+def host_path_phase(kernels):
+    """Phase 16: the host driver on the stand-ins (lunarlander, spiel,
+    atari), MuZero's host branches, and the hyperparameter search. Adds
+    each sub-phase's launches to the kernels' entries."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from muzero_general_tpu_torch import MuZero, search
+    from muzero_general_tpu_torch.envs.host import SpielGame
+    from muzero_general_tpu_torch.games import atari, lunarlander, spiel
+    from muzero_general_tpu_torch.hostplay import HostSelfPlayDriver
+    from muzero_general_tpu_torch.models import MuZeroNetwork
+    from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
+
+    t_phase = time.perf_counter()
+    root = REPO / "results" / "chip_smoke" / "host"
+    shutil.rmtree(root, ignore_errors=True)
+    entries = {k["name"]: k for k in kernels}
+    Lander, TicTacToe, Frames = host_stand_ins()
+    tree_kernels = ("descend_planar", "backprop")
+
+    def zero_counts():
+        mcts_fused.search.launches = 0
+        mcts_kernels.descend_planar.launches = 0
+        mcts_kernels.backprop.launches = 0
+
+    def counts():
+        return {"mcts_fused_search": mcts_fused.search.launches,
+                "descend_planar": mcts_kernels.descend_planar.launches,
+                "backprop": mcts_kernels.backprop.launches}
+
+    def add_launches(key, launched):
+        for name, n in launched.items():
+            if n:
+                entries[name][key] = entries[name].get(key, 0) + n
+
+    def checked_moves(label, driver, moves):
+        """`moves` moves with every kernel launch held against its plain
+        version; fail unless each tree kernel ran once per simulation of
+        each dispatch. Returns ({kernel: launches}, the completed games)."""
+        with CheckedLaunches(label) as checked:
+            games, stats = driver.play(1.0, num_moves=moves)
+        done = checked.checked()
+        launched = {name: checked.launches()[name] for name in tree_kernels}
+        dispatches = 2 if driver.pipelined else 1
+        want = moves * dispatches * driver.spec.num_simulations
+        if set(done) != set(tree_kernels) or any(n != want for n in launched.values()):
+            fail(f"{label}: launches {launched} (want {want} each), checked {sorted(done)}")
+        log(f"[{label}] {moves} move(s), {driver.G} lanes x {driver.spec.num_simulations} sims "
+            f"({dispatches} dispatch(es) of {driver.search_batch} lanes a move): every launch "
+            "against its plain version: " + ", ".join(
+                f"{name} {n} launches equal (max |d| {e!r})" for name, (n, e) in done.items()))
+        return launched, games + stats["eval_games"]
+
+    def timed_chunks(driver, reps):
+        """`reps` play() chunks after zeroed counts: (s per chunk, stats,
+        launches)."""
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            games, stats = driver.play(1.0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps, stats, {n: counts()[n] for n in tree_kernels}
+
+    # ---- 16a. lunarlander's shipped width, pipeline off and on ----------------
+    rates = {}
+    for pipelined in (False, True):
+        cfg = lunarlander.MuZeroConfig()
+        cfg.host_pipeline = pipelined
+        mode = "pipelined" if pipelined else "serial"
+        net = MuZeroNetwork(cfg, seed=0)
+        driver = HostSelfPlayDriver(Lander, net, cfg, seed=0)
+        G, K, S = driver.G, cfg.selfplay_chunk_moves, cfg.num_simulations
+        if (G, K, S, cfg.encoding_size, cfg.fc_dynamics_layers) != (16, 8, 50, 10, [64]):
+            fail(f"16a: not lunarlander's shipped config: {(G, K, S)}")
+        if not driver.spec.use_kernels or driver.search_batch != (8 if pipelined else 16):
+            fail(f"16a {mode}: kernels {driver.spec.use_kernels}, batch {driver.search_batch}")
+        first, _ = checked_moves(f"lunarlander host {mode}", driver, 1)
+        chunk_s, stats, launched = timed_chunks(driver, 2)
+        dispatches = 2 if pipelined else 1
+        if any(n != 2 * K * dispatches * S for n in launched.values()):
+            fail(f"16a {mode}: launches {launched} over {2 * K} moves")
+        add_launches(f"lunarlander_host_{mode}_launches",
+                     {n: first[n] + launched[n] for n in tree_kernels})
+        move_ms = chunk_s * 1e3 / K
+        rates[mode] = stats["env_steps"] / chunk_s
+        log(f"[lunarlander host {mode}] HostSelfPlayDriver.play, shipped width (FC, encoding "
+            f"10, 64-wide, support 10), {G} lanes x {S} sims, {K} moves a chunk, stand-in env: "
+            f"{chunk_s * 1e3:.2f} ms/chunk, {move_ms:.3f} ms/move, {rates[mode]:.1f} "
+            f"env-steps/s; launches {launched} over {2 * K} moves "
+            f"({launched['descend_planar'] / (2 * K * dispatches):.1f} a dispatch)")
+        host_profile(f"lunarlander host {mode}", driver, move_ms, dispatches)
+    log(f"[lunarlander host] env-steps/s pipelined {rates['pipelined']:.1f} against serial "
+        f"{rates['serial']:.1f} ({rates['pipelined'] / rates['serial']:.3f}x)")
+    log(f"[done] 16a after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 16b. MuZero("lunarlander").train() and test() ------------------------
+    mz = MuZero("lunarlander", {"training_steps": 16, "results_path": str(root / "lunarlander")})
+    mz.make_env = lambda seed=None, **kw: Lander(seed)
+    zero_counts()
+    ck, train_s = timed_train(mz)
+    train_launches = {n: counts()[n] for n in tree_kernels}
+    if ck["training_step"] != 16 or not all(train_launches.values()):
+        fail(f"16b: train() ended at {ck['training_step']} with launches {train_launches}")
+    if not all(np.isfinite(ck[k]) for k in ("total_loss", "value_loss", "policy_loss")):
+        fail("16b: non-finite losses")
+    add_launches("lunarlander_host_train_launches", train_launches)
+    log(f"[muzero lunarlander host] train() 16 steps at the shipped width on the stand-in "
+        f"env in {train_s:.2f} s: {ck['num_played_games']} games, {ck['num_played_steps']} "
+        f"steps, launches {train_launches}; loss {ck['total_loss']:.4f}; last greedy reward "
+        f"{ck['total_reward']:.3f}")
+    log(f"[muzero lunarlander host] phase split: {phase_split(mz.phase_time, train_s)}")
+    results = {}
+    for opponent in ("self", "random"):
+        zero_counts()
+        t0 = time.perf_counter()
+        results[opponent] = mz.test(opponent=opponent, num_tests=1)
+        test_s = time.perf_counter() - t0
+        launched = {n: counts()[n] for n in tree_kernels}
+        if not np.isfinite(results[opponent]):
+            fail(f"16b: test(opponent={opponent!r}) gave {results[opponent]}")
+        add_launches(f"lunarlander_host_test_{opponent}_launches", launched)
+        how = ("the host driver at G = 1" if opponent == "self"
+               else "play_against_opponent's host branch, B = 1")
+        log(f"[muzero lunarlander host] test(opponent={opponent!r}): reward "
+            f"{results[opponent]:.3f} in {test_s:.2f} s through {how}; launches {launched}")
+    log(f"[done] 16b after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 16c. spiel: the two-player ResNet on a tic-tac-toe stand-in ----------
+    cfg = spiel.MuZeroConfig()
+    if (tuple(cfg.observation_shape), len(cfg.action_space), len(cfg.players)) != ((3, 3, 3), 9, 2):
+        fail(f"16c: spiel's config {cfg.observation_shape} without pyspiel")
+    net = MuZeroNetwork(cfg, seed=0)
+    driver = HostSelfPlayDriver(lambda seed=None: SpielGame(game=TicTacToe()), net, cfg, seed=0)
+    if not (driver.fold_bn and driver.spec.use_kernels):
+        fail(f"16c: fold {driver.fold_bn}, kernels {driver.spec.use_kernels}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launched, games = checked_moves("spiel host", driver, cfg.selfplay_chunk_moves)
+    chunk_s = time.perf_counter() - t0
+    add_launches("spiel_host_launches", launched)
+    outcomes = [float(gh.rewards[-1]) for gh in games]
+    if not games or any(gh.child_visits.shape[1:] != (9,) for gh in games):
+        fail(f"16c: {len(games)} completed games")
+    log(f"[spiel host] one chunk of {cfg.selfplay_chunk_moves} moves, {driver.G} lanes x "
+        f"{cfg.num_simulations} sims, {cfg.blocks} x {cfg.channels} ResNet (BN folded), with "
+        f"every launch checked: {chunk_s:.2f} s; {len(games)} tic-tac-toe games completed, "
+        f"{outcomes.count(1.0)} won by the last mover, {outcomes.count(0.0)} drawn")
+
+    # ---- 16d. atari's network at the shipped width ---------------------------
+    cfg = atari.MuZeroConfig()
+    width = (cfg.blocks, cfg.channels, cfg.stacked_observations, cfg.support_size,
+             cfg.compute_dtype, cfg.downsample, cfg.parallel_games, cfg.num_simulations)
+    if width != (16, 256, 32, 300, "bfloat16", "resnet", ATARI_LANES, 50):
+        fail(f"16d: not atari's shipped config: {width}")
+    t0 = time.perf_counter()
+    net = MuZeroNetwork(cfg, seed=0)
+    driver = HostSelfPlayDriver(Frames, net, cfg, seed=0)
+    setup_s = time.perf_counter() - t0
+    if not (driver.fold_bn and driver.spec.use_kernels):
+        fail(f"16d: fold {driver.fold_bn}, kernels {driver.spec.use_kernels}")
+    t0 = time.perf_counter()
+    first, _ = checked_moves("atari host", driver, 1)
+    checked_s = time.perf_counter() - t0
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stats = driver.play(1.0, num_moves=1)
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - t0) * 1e3
+    launched = {n: counts()[n] for n in tree_kernels}
+    if any(n != cfg.num_simulations for n in launched.values()):
+        fail(f"16d: launches {launched} in one move")
+    if not np.isfinite(stats["pred_values"]).all():
+        fail("16d: non-finite values")
+    add_launches("atari_host_launches", {n: first[n] + launched[n] for n in tree_kernels})
+    log(f"[atari host] the shipped network (downsample resnet, 16 blocks x 256 channels, 32 "
+        f"stacked frames: {3 * 33 + 32} input planes of 96 x 96, support 300, bf16), "
+        f"{driver.G} lanes x {cfg.num_simulations} sims, stand-in frames: set-up "
+        f"{setup_s:.2f} s, the checked move {checked_s:.2f} s, a timed move {move_ms:.1f} ms "
+        f"({driver.G / move_ms * 1e3:.1f} env-steps/s), launches {launched}; max depth "
+        f"{stats['max_tree_depth']}")
+    host_profile("atari host", driver, move_ms, 1)
+    del driver, net
+    torch.cuda.empty_cache()
+    log(f"[done] 16c-16d after {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    # ---- 16e. the hyperparameter search ---------------------------------------
+    tiny = {"training_steps": 16, "max_moves": 100}
+    runs = []
+    run_candidate = search._run_candidate
+
+    def recorded(game, values, overrides, devices, num_tests, path):
+        out = run_candidate(game, values, overrides, devices, num_tests, path)
+        runs.append((values, devices, out[0], threading.current_thread().name))
+        return out
+
+    search._run_candidate = recorded
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        best = search.one_plus_one_search(
+            "cartpole", {"lr_init": ("log", 1e-3, 1e-1)}, budget=2, parallel_experiments=2,
+            num_tests=1, base_overrides=tiny, results_root=root / "search")
+    finally:
+        search._run_candidate = run_candidate
+    search_s = time.perf_counter() - t0
+    fused = counts()["mcts_fused_search"]
+    threads = {name for *_, name in runs}
+    if (len(runs) != 2 or threads != {threading.main_thread().name} or best is None
+            or not (root / "search" / "model.checkpoint").exists() or not fused):
+        fail(f"16e: runs {runs}, best {best}, fused-search launches {fused}")
+    entries["mcts_fused_search"]["hyperparameter_search_launches"] = fused
+    log(f"[search] one_plus_one_search('cartpole', budget 2, parallel_experiments 2, "
+        f"candidates of {tiny}) in {search_s:.2f} s, on slices {[str(d) for _, d, _, _ in runs]}"
+        f" (one card: they collide, so one after the other): " + "; ".join(
+            f"lr_init {v['lr_init']:.5f} -> score {s:.2f}" for v, _, s, _ in runs)
+        + f"; best {best}; fused-search launches {fused}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[done] phase 16 in {seconds:.1f} s")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3588,6 +3975,8 @@ def main():
     log(f"[done] remaining games after {time.perf_counter() - t_start:.1f} s")
     gumbel_phase()
     device_replay_phase(cart_replay, c4_replay, kernels, host_train["train_s"])
+    log(f"[done] Gumbel and device replay after {time.perf_counter() - t_start:.1f} s")
+    host_path_phase(kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

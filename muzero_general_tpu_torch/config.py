@@ -111,7 +111,7 @@ class MuZeroConfig:
         # Used: loops between evaluation games against a scripted opponent.
         self.eval_interval_loops = 4
         # The port runs on one device: values above 1 raise in
-        # MuZero.train (ROADMAP queue 1 item 9).
+        # MuZero.train (ROADMAP queue 1 item 9b).
         self.mesh_dp = None
         self.mesh_mp = 1
         # Used: the networks' compute dtype, read as the JAX package reads
@@ -160,17 +160,19 @@ class MuZeroConfig:
         # heads still emit float32), as in the JAX package; only with
         # fold_bn_inference (models/network.py activation_dtype).
         self.search_bf16_activations = False
-        # Gumbel search is not ported yet (ROADMAP queue 1 item 6); the
-        # driver raises NotImplementedError when it is on.
+        # Used: True runs the Gumbel search (ops/gumbel.py) in self-play and
+        # evaluation, with these three knobs.
         self.use_gumbel_mcts = False
         self.gumbel_max_considered_actions = 16
         self.gumbel_c_visit = 50.0
         self.gumbel_c_scale = 1.0
-        # Unused: the host-env driver is not ported yet (ROADMAP queue 1
-        # item 8).
+        # Used: the host-env driver (hostplay.py) splits its lanes in two
+        # halves and searches one on the device while the host steps the
+        # other's envs.
         self.host_pipeline = False
-        # Device replay is not ported yet: True raises in MuZero.train where
-        # the JAX package engages it (ROADMAP queue 1 item 7).
+        # Used: with fused_train_steps > 1, MuZero.train keeps the replay
+        # ring, sampling and priority write-backs on the device
+        # (ops/device_replay.py), where the JAX package engages it.
         self.device_replay = False
         # Used: numbered checkpoint snapshots every this many steps.
         self.snapshot_interval = None

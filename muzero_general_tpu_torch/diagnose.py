@@ -13,18 +13,17 @@ on any device, as in JAX. The virtual steps seed their search with
 `root_outputs`, the recurrent inference from the previous root's hidden
 state. The network is the module itself, in eval mode (the JAX package
 passes its variables beside a runner). Searches draw from one
-torch.Generator seeded with config.seed; the real trajectory's env draws
-from a second one, the same for reset and every step (JAX steps the env
-with one key for the whole horizon).
-
-Host envs (gymnasium and the like) are not ported (ROADMAP queue 1 item 8).
+torch.Generator seeded with config.seed; the real trajectory's device env
+draws from a second one, the same for reset and every step (JAX steps the
+env with one key for the whole horizon). A host env (envs/host.py) steps
+on the host, as JAX's host branch (diagnose.py:184-188) does.
 """
 
 import numpy as np
 import torch
 
 from muzero_general_tpu_torch.device import resolve_device
-from muzero_general_tpu_torch.evaluate import _refuse_host_env
+from muzero_general_tpu_torch.evaluate import _DeviceGame, _HostGame
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
 from muzero_general_tpu_torch.ops.support import support_to_scalar
 
@@ -175,29 +174,28 @@ class DiagnoseModel:
         """Reference diagnose_model.py:82-140: the virtual trajectory from
         the env's first observation, then the real one along its actions
         until an illegal move, a done or the horizon. `start`: the env's
-        start values, as env.reset takes them (default: drawn). Returns
-        (virtual, real, divergence_index)."""
-        _refuse_host_env(env)
+        start values, as env.reset takes them (default: drawn; device envs
+        only). Returns (virtual, real, divergence_index)."""
         env_seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self.generator,
                                      device=self.device))
-        env_generator = torch.Generator(device=self.device).manual_seed(env_seed)
-        if start is not None:
-            start = torch.as_tensor(start, device=self.device)[None]
-        state = env.reset(1, env_generator, start)
+        if getattr(env, "host_env", False):
+            game = _HostGame(env)
+        else:
+            game = _DeviceGame(
+                env, torch.Generator(device=self.device).manual_seed(env_seed), start)
+
+        def observation():
+            return torch.from_numpy(game.observation()).to(self.device)[None]
 
         def legal():
-            return env.legal_actions_mask(state)
+            return torch.from_numpy(game.legal()[None]).to(self.device)
 
-        def to_play():
-            return int(env.to_play(state)[0])
-
-        virtual = self.get_virtual_trajectory_from_obs(env.observation(state)[0], horizon,
-                                                       False)
+        virtual = self.get_virtual_trajectory_from_obs(game.observation(), horizon, False)
         real = Trajectoryinfo("Real trajectory", self.config)
         divergence_index = None
         end_reason = "Reached horizon"
 
-        out = self._search(env.observation(state), legal=legal(), to_play=to_play())
+        out = self._search(observation(), legal=legal(), to_play=game.to_play())
         self.plot_mcts(out.tree, plot)
         real.store_info(out, None, np.nan)
         for i, action in enumerate(virtual.action_history):
@@ -205,12 +203,10 @@ class DiagnoseModel:
                 end_reason = f"Virtual trajectory reached an illegal move at timestep {i}."
                 divergence_index = i
                 break
-            state, reward, done = env.step(
-                state, torch.full((1,), action, dtype=torch.long, device=self.device),
-                env_generator)
-            out = self._search(env.observation(state), legal=legal(), to_play=to_play())
-            real.store_info(out, action, float(reward[0]))
-            if bool(done[0]):
+            _, reward, done = game.step(action)
+            out = self._search(observation(), legal=legal(), to_play=game.to_play())
+            real.store_info(out, action, reward)
+            if done:
                 end_reason = "Real trajectory reached Done"
                 break
 

@@ -4,7 +4,8 @@ Counterpart of the reference's test path with opponent modes (reference
 muzero.py:369-424 test, self_play.py:188-220 select_opponent_action):
 "self", "random", "expert", "human". MuZero's turns run the staged batched
 search at batch 1 on the network's device; the opponents' turns are host
-logic (random, human) or the env's batched expert on a one-game batch.
+logic (random, human), the env's batched expert on a one-game batch, or a
+host env's own expert.
 
 - `_mcts_policy_fn` is JAX evaluate.py:22-60: `run_mcts` with root noise,
   its spec from `SearchSpec.from_config(config, batch_size=1, device)`. The
@@ -14,16 +15,16 @@ logic (random, human) or the env's batched expert on a one-game batch.
   8 lanes). Under `use_gumbel_mcts` it is the deterministic greedy Gumbel
   search (ops/gumbel.py, `add_gumbel=False`; JAX :25-41), whose
   `greedy_action` MuZero plays (JAX :147-149).
-- `play_against_opponent` is :63-192. The random opponent draws from
-  np.random.default_rng(seed) exactly as JAX does, so a random-opponent
-  game is comparable move for move; the expert and the env's reset draw
-  from a torch.Generator seeded with `seed` (torch cannot replay JAX's
-  PRNG). `start` sets the env's start state explicitly, as env.reset takes
-  it.
-- `manual_game` is :195-221, device-env branch.
-
-Not ported, and refused with NotImplementedError: host envs (:77-97;
-ROADMAP queue 1 item 8).
+- `play_against_opponent` is :63-192, over both env protocols as JAX's
+  accessors are (:74-120): a device env (a one-game batch on env.device)
+  or a host env (envs/host.py; the search on the network's device). The
+  random opponent draws from np.random.default_rng(seed) exactly as JAX
+  does, so a random-opponent game is comparable move for move; a host
+  env's expert draws from the same numpy generator, as in JAX; a device
+  env's expert and reset draw from a torch.Generator seeded with `seed`
+  (torch cannot replay JAX's PRNG). `start` sets a device env's start
+  state explicitly, as env.reset takes it.
+- `manual_game` is :195-221, both branches.
 """
 
 import numpy as np
@@ -65,11 +66,70 @@ def _mcts_policy_fn(network, config, device):
     return search
 
 
-def _refuse_host_env(env):
-    if getattr(env, "host_env", False):
-        raise NotImplementedError(
-            "host envs (gymnasium and the like) are not ported yet (ROADMAP queue 1 item 8)"
-        )
+class _DeviceGame:
+    """One game of a batched device env, with the accessors the evaluation
+    loop uses (JAX evaluate.py:99-120)."""
+
+    def __init__(self, env, generator, start=None):
+        self.env, self.generator = env, generator
+        if start is not None:
+            start = torch.as_tensor(start, device=env.device)[None]
+        self.state = env.reset(1, generator, start)
+
+    def observation(self):
+        return self.env.observation(self.state)[0].cpu().numpy()
+
+    def legal(self):
+        return self.env.legal_actions_mask(self.state)[0].cpu().numpy()
+
+    def to_play(self):
+        return int(self.env.to_play(self.state)[0])
+
+    def step(self, action):
+        self.state, reward, done = self.env.step(
+            self.state, torch.full((1,), action, dtype=torch.long, device=self.env.device),
+            self.generator)
+        return self.observation(), float(reward[0]), bool(done[0])
+
+    def expert(self, np_rng):
+        return int(self.env.expert_action(self.state, self.generator)[0])
+
+    def human(self):
+        return int(self.env.human_to_action(self.state))
+
+    def render(self):
+        self.env.render(self.state)
+
+
+class _HostGame:
+    """A host env (envs/host.py) behind the same accessors (JAX
+    evaluate.py:77-97)."""
+
+    def __init__(self, env):
+        self.env = env
+        self._obs = env.reset()
+
+    def observation(self):
+        return np.asarray(self._obs)
+
+    def legal(self):
+        return np.asarray(self.env.legal_actions_mask())
+
+    def to_play(self):
+        return int(self.env.to_play())
+
+    def step(self, action):
+        self._obs, reward, done = self.env.step(action)
+        return self.observation(), float(reward), bool(done)
+
+    def expert(self, np_rng):
+        return self.env.expert_action(np_rng)
+
+    def human(self):
+        return int(input(f"Enter action (0-{self.env.num_actions - 1}): "))
+
+    def render(self):
+        self.env.render()
 
 
 def play_against_opponent(env, network, config, opponent, muzero_player, seed=0,
@@ -79,40 +139,31 @@ def play_against_opponent(env, network, config, opponent, muzero_player, seed=0,
 
     Returns a GameHistory (same aggregation contract as reference test()).
     """
-    _refuse_host_env(env)
-    device = env.device
+    is_host = getattr(env, "host_env", False)
+    device = next(network.parameters()).device if is_host else env.device
     np_rng = np.random.default_rng(seed)
     generator = torch.Generator(device=device).manual_seed(seed)
     search = _mcts_policy_fn(network, config, device)
     A = env.num_actions
     n = config.stacked_observations
+    game = _HostGame(env) if is_host else _DeviceGame(env, generator, start)
 
-    if start is not None:
-        start = torch.as_tensor(start, device=device)[None]
-    state = env.reset(1, generator, start)
-
-    def observation():
-        return env.observation(state)[0].cpu().numpy()
-
-    def to_play_now():
-        return int(env.to_play(state)[0])
-
-    obs_list = [observation()]
-    actions, rewards, to_plays = [0], [0.0], [to_play_now()]
+    obs_list = [game.observation()]
+    actions, rewards, to_plays = [0], [0.0], [game.to_play()]
     child_visits, root_values = [], []
     done = False
 
     if render:
-        env.render(state)
+        game.render()
 
     while not done and len(actions) <= config.max_moves:
         observations = np.stack(obs_list)
         stacked = stack_observations_np(
             observations, np.asarray(actions, np.int64), len(obs_list) - 1, n, A
         )[None]
-        legal_t = env.legal_actions_mask(state)
-        legal = legal_t.cpu().numpy()
-        to_play = to_play_now()
+        legal = game.legal()[None]
+        legal_t = torch.from_numpy(legal).to(device)
+        to_play = game.to_play()
 
         if opponent == "self" or to_play == muzero_player or len(config.players) == 1:
             out = search(
@@ -135,9 +186,9 @@ def play_against_opponent(env, network, config, opponent, muzero_player, seed=0,
                 legal_idx = np.flatnonzero(legal[0])
                 action = int(np_rng.choice(legal_idx))
             elif opponent == "expert":
-                action = int(env.expert_action(state, generator)[0])
+                action = int(game.expert(np_rng))
             elif opponent == "human":
-                action = int(env.human_to_action(state))
+                action = game.human()
             else:
                 raise NotImplementedError(
                     '"opponent" argument should be "self", "human", "expert" or "random"'
@@ -145,18 +196,15 @@ def play_against_opponent(env, network, config, opponent, muzero_player, seed=0,
             child_visits.append(np.zeros(A, np.float32))
             root_values.append(0.0)
 
-        state, reward, done_t = env.step(
-            state, torch.full((1,), action, dtype=torch.long, device=device), generator
-        )
-        done = bool(done_t[0])
+        obs, reward, done = game.step(action)
         if render:
             print(f"Played action: {env.action_to_string(action)}")
-            env.render(state)
+            game.render()
 
-        obs_list.append(observation())
+        obs_list.append(obs)
         actions.append(action)
-        rewards.append(float(reward[0]))
-        to_plays.append(to_play_now())
+        rewards.append(reward)
+        to_plays.append(game.to_play())
 
     return GameHistory(
         observations=np.stack(obs_list[:-1]).astype(np.float32),
@@ -170,19 +218,16 @@ def play_against_opponent(env, network, config, opponent, muzero_player, seed=0,
 
 def manual_game(env, seed=0):
     """Play the env by hand (reference CLI menu 'Test the game manually')."""
-    _refuse_host_env(env)
-    generator = torch.Generator(device=env.device).manual_seed(seed)
+    if getattr(env, "host_env", False):
+        game = _HostGame(env)
+    else:
+        game = _DeviceGame(env, torch.Generator(device=env.device).manual_seed(seed))
     total = 0.0
-    state = env.reset(1, generator)
-    env.render(state)
+    game.render()
     done = False
     while not done:
-        action = env.human_to_action(state)
-        state, reward, done_t = env.step(
-            state, torch.full((1,), action, dtype=torch.long, device=env.device), generator
-        )
-        done = bool(done_t[0])
-        total += float(reward[0])
-        print(f"Reward: {float(reward[0])}")
-        env.render(state)
+        _, reward, done = game.step(game.human())
+        total += reward
+        print(f"Reward: {reward}")
+        game.render()
     print(f"Total reward: {total}")

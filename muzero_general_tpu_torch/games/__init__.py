@@ -1,8 +1,7 @@
 """Per-game plugin modules: each exposes `MuZeroConfig` and `make_env()`.
 
-Counterpart of muzero_general_tpu/games, in its order; only the games whose
-envs are ported are listed (atari, lunarlander and spiel run host envs:
-ROADMAP queue 1 item 8).
+Counterpart of muzero_general_tpu/games: the same eleven games, in its order
+(lunarlander, atari and spiel run host envs, envs/host.py).
 """
 
 AVAILABLE_GAMES = [
@@ -13,5 +12,8 @@ AVAILABLE_GAMES = [
     "gomoku",
     "twentyone",
     "gridworld",
+    "lunarlander",
     "breakout",
+    "atari",
+    "spiel",
 ]

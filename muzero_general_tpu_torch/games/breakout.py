@@ -1,17 +1,14 @@
 """breakout game module (port of muzero_general_tpu/games/breakout.py; the
 budget atari variant, config parity with reference games/breakout.py:11-110).
 
-The JAX package's make_env plays ALE Breakout when ale-py is installed and
-its own on-device Breakout otherwise. The port has only the on-device one
-(envs/breakout.py); where ale-py is installed, JAX would play ALE, so
-make_env refuses rather than play a different game (the host envs are
-ROADMAP queue 1 item 8).
+As the JAX package's, make_env plays ALE Breakout on the host
+(envs/host.py AtariBreakout) when ale-py is installed, and the on-device
+Breakout (envs/breakout.py) otherwise.
 """
-
-import importlib.util
 
 from muzero_general_tpu_torch import config as config_lib
 from muzero_general_tpu_torch.envs.breakout import Breakout
+from muzero_general_tpu_torch.envs.host import AtariBreakout
 
 
 class MuZeroConfig(config_lib.MuZeroConfig):
@@ -89,11 +86,9 @@ class MuZeroConfig(config_lib.MuZeroConfig):
 
 
 def make_env(seed=None, device=None):
-    """The torch Breakout; NotImplementedError where ale-py is installed,
-    as the JAX package would then play ALE Breakout (a host env)."""
-    if importlib.util.find_spec("ale_py") is not None:
-        raise NotImplementedError(
-            "ale-py is installed, so the JAX package plays ALE Breakout here; the "
-            "host envs are not ported yet (ROADMAP queue 1 item 8)"
-        )
-    return Breakout(device=device)
+    """ALE Breakout on the host when ale-py is installed (reference parity;
+    `device` unused), else the on-device Breakout on `device`."""
+    try:
+        return AtariBreakout(seed=seed)
+    except ImportError:
+        return Breakout(device=device)

@@ -7,14 +7,19 @@ synchronous process: after each self-play chunk the learner catches up to
 ratio * num_played_steps exactly, and SharedStorage is the 17-key
 checkpoint dict held in the process. Everything runs on one device:
 `device=None` means the CUDA card, and without one `MuZero` raises unless
-the caller passes `device="cpu"`.
+the caller passes `device="cpu"`. A device group (`devices`, or
+`split_resources_in` with `slice_index`, as search.py uses them) pins the
+instance to its one device.
 
 What of the JAX package's muzero.py is where:
 - `two_player_reward_split` :40; `MuZero.__init__` :87-125, with
-  `device` beside the JAX arguments; `_restore_state` :134-153 is a
+  `device` beside the JAX arguments (the device group :87-99 and the
+  pinning of train/test :220-224, :758-763 are `self.device`);
+  `_restore_state` :134-153 is a
   `trainer.Learner` restored by `checkpoint.restore_learner`; the
   checkpoint syncs :155-160 and :676-704 are `checkpoint.sync_state` and
-  `checkpoint.sync_checkpoint`; `_make_driver` :163-175; `_reanalyse_sweep`
+  `checkpoint.sync_checkpoint`; `_make_driver` :163-175 (host envs get
+  hostplay.HostSelfPlayDriver); `_reanalyse_sweep`
   :178-216 with the value function of :447-452; `train` is `train`/`_train`
   :219-753 and `test` is `test`/`_test` :756-808; `terminate_workers` :811;
   `load_model` :818-836; `load_model_menu` :862-882; `main` :885-939.
@@ -28,10 +33,10 @@ What of the JAX package's muzero.py is where:
   priorities are not written on that path, as in JAX.
 - The Gumbel search (`use_gumbel_mcts`) runs in the self-play driver and in
   evaluate.py.
+- `hyperparameter_search` :850-860 runs search.py's one_plus_one_search.
 - Raised with NotImplementedError, naming the ROADMAP queue 1 item that
-  will lift it: `split_resources_in` > 1, `devices`, `distributed`, a
-  mesh (`mesh_dp`/`mesh_mp` > 1) and `hyperparameter_search` (item 9);
-  host envs (item 8).
+  will lift it (item 9b): `distributed`, a device group of more than one
+  device and a mesh (`mesh_dp`/`mesh_mp` > 1).
 - `diagnose_model` :839-847 runs diagnose.py's DiagnoseModel on the
   checkpoint's weights.
 - The mesh and multi-host code of `_train` (:244-313, :326-349, :453-466)
@@ -50,6 +55,7 @@ import torch
 from muzero_general_tpu_torch import checkpoint as ckpt_lib
 from muzero_general_tpu_torch import config as config_lib
 from muzero_general_tpu_torch.device import resolve_device
+from muzero_general_tpu_torch.hostplay import HostSelfPlayDriver
 from muzero_general_tpu_torch.logger import MetricsLogger
 from muzero_general_tpu_torch.models import MuZeroNetwork, params_from_jax, params_to_jax
 from muzero_general_tpu_torch.ops import device_replay as dr_lib
@@ -76,6 +82,38 @@ def two_player_reward_split(gh: GameHistory, muzero_player: int):
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+
+
+def device_fleet(device=None):
+    """The devices an instance may claim: every CUDA card (`cuda:i`), or
+    the CPU when `device` asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cpu":
+        return [torch.device("cpu")]
+    resolve_device(device)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device_group(devices=None, split_resources_in=1, slice_index=0, device=None):
+    """The instance's device group (JAX muzero.py:94-99): `devices`, or the
+    `slice_index`-th contiguous 1/split_resources_in slice of the fleet;
+    None without either. A group runs on its one device: more than one
+    needs a mesh (ROADMAP queue 1 item 9b)."""
+    if devices:
+        group = [torch.device(d) for d in devices]
+    elif split_resources_in > 1:
+        fleet = device_fleet(device)
+        per = max(1, len(fleet) // split_resources_in)
+        lo = min(slice_index * per, len(fleet) - per)
+        group = fleet[lo : lo + per]
+    else:
+        return None
+    if len(group) > 1:
+        raise _not_ported(f"a device group of {len(group)} devices (a mesh)", "9b")
+    want = torch.device(device) if device is not None else group[0]
+    if want.type != group[0].type or want.index not in (None, group[0].index):
+        raise ValueError(f"device={device} is not the device group's {group[0]}")
+    return group
 
 
 # Completed games go to the device ring in chunks of this many (one padded
@@ -143,21 +181,28 @@ class MuZero:
     Args:
         game_name: name of a module in muzero_general_tpu_torch/games.
         config: optional dict of overrides or a full MuZeroConfig instance.
-        split_resources_in, devices, slice_index, distributed: the JAX
-            package's device-group and multi-host arguments; anything but
-            their defaults raises (ROADMAP queue 1 item 9).
+        split_resources_in: claim only 1/N of the devices (device_group),
+            so N instances can run at once (reference muzero.py:71-96,
+            142-153; used by hyperparameter_search). Which 1/N contiguous
+            slice is taken is `slice_index`.
+        slice_index: which slice split_resources_in claims.
+        devices: an explicit device group for this instance (overrides
+            split_resources_in); search.py places concurrent experiments on
+            disjoint groups this way. A group runs on its one device; a
+            group of more than one device needs a mesh, which raises
+            NotImplementedError (ROADMAP queue 1 item 9b), as does
+            `distributed` (multi-host training).
         device: the torch device everything runs on; None means the CUDA
-            card (device.resolve_device).
+            card (device.resolve_device). With a group, its device.
     """
 
     def __init__(self, game_name, config=None, split_resources_in=1,
                  devices=None, slice_index=0, distributed=None, device=None):
         if distributed:
-            raise _not_ported("multi-host training (distributed)", 9)
-        if devices is not None or split_resources_in > 1:
-            raise _not_ported("device groups (split_resources_in, devices)", 9)
+            raise _not_ported("multi-host training (distributed)", "9b")
         self.game_name = game_name
-        self.device = resolve_device(device)
+        self._devices = device_group(devices, split_resources_in, slice_index, device)
+        self.device = resolve_device(self._devices[0] if self._devices else device)
         game_module = config_lib.load_game_module(game_name)
         self.make_env = functools.partial(game_module.make_env, device=self.device)
         self.config = game_module.MuZeroConfig()
@@ -197,11 +242,12 @@ class MuZero:
         return learner
 
     def _make_driver(self, network, num_games=None, seed=None, greedy_lanes=0):
-        """The batched self-play driver on the game's env (JAX
-        muzero.py:163-175); host envs are not ported."""
+        """The device driver for device envs, the host driver otherwise (JAX
+        muzero.py:163-175)."""
         env = self.make_env()
         if getattr(env, "host_env", False):
-            raise _not_ported("the host-env self-play driver (hostplay.py)", 8)
+            return HostSelfPlayDriver(self.make_env, network, self.config, num_games=num_games,
+                                      seed=seed, greedy_lanes=greedy_lanes, device=self.device)
         return SelfPlayDriver(env, network, self.config, num_games=num_games, seed=seed,
                               greedy_lanes=greedy_lanes, device=self.device)
 
@@ -243,7 +289,7 @@ class MuZero:
     def _refuse_unported(self):
         cfg = self.config
         if int(cfg.mesh_dp or 1) > 1 or int(cfg.mesh_mp or 1) > 1:
-            raise _not_ported("a device mesh (mesh_dp, mesh_mp)", 9)
+            raise _not_ported("a device mesh (mesh_dp, mesh_mp)", "9b")
 
     def train(self, log_in_tensorboard=True):
         """Synchronous actor-learner training (reference muzero.py:132-208;
@@ -611,9 +657,15 @@ def _stop_profile(profiler, profile_dir):
 
 
 def hyperparameter_search(game_name, parametrization, budget, parallel_experiments,
-                          num_tests):
-    """(1+1)-ES hyperparameter search (JAX muzero.py:850, search.py)."""
-    raise _not_ported("hyperparameter_search (search.py)", 9)
+                          num_tests, device=None):
+    """(1+1)-ES hyperparameter search (reference muzero.py:495-581 used
+    nevergrad OnePlusOne; JAX muzero.py:850-860 builds the equivalent
+    one-plus-one loop in, search.py). `device`: as MuZero's; the
+    experiments' device groups are slices of its fleet."""
+    from muzero_general_tpu_torch.search import one_plus_one_search
+
+    return one_plus_one_search(game_name, parametrization, budget, parallel_experiments,
+                               num_tests, device=device)
 
 
 def load_model_menu(muzero, game_name):
@@ -641,10 +693,7 @@ def load_model_menu(muzero, game_name):
 def main(argv=None, device=None):
     """CLI: `python -m muzero_general_tpu_torch [game] ['{json overrides}']`
     (reference muzero.py:622-712). With a game, trains it; without, the
-    interactive menu. `device`: as MuZero's (None: the card).
-
-    The menu's "Hyperparameter search" reaches the NotImplementedError of
-    hyperparameter_search."""
+    interactive menu. `device`: as MuZero's (None: the card)."""
     argv = argv if argv is not None else sys.argv[1:]
     from muzero_general_tpu_torch.games import AVAILABLE_GAMES
 
@@ -694,7 +743,7 @@ def main(argv=None, device=None):
             manual_game(muzero.make_env())
         elif choice == 6:
             hyperparameter_search(game_name, None, budget=20, parallel_experiments=1,
-                                  num_tests=10)
+                                  num_tests=10, device=device)
         else:
             break
 

@@ -35,7 +35,7 @@ Evaluation is folded in as greedy lanes: lanes [0, greedy_lanes) play at
 temperature 0 inside the same batch and their episodes come back in
 stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
 
-The mesh/dp sharding of lanes (ROADMAP queue 1 item 9) is not ported.
+The mesh/dp sharding of lanes (ROADMAP queue 1 item 9b) is not ported.
 """
 
 import logging

@@ -284,8 +284,9 @@ def test_configs_match_jax_attribute_for_attribute(game):
 
 
 def test_available_games_follow_the_jax_list():
-    """JAX's list, in its order, less the host-env games (item 8)."""
-    assert AVAILABLE_GAMES == [g for g in JAX_GAMES if g not in ("atari", "lunarlander", "spiel")]
+    """JAX's list, in its order: the host-env games (lunarlander, atari,
+    spiel) too."""
+    assert AVAILABLE_GAMES == JAX_GAMES
 
 
 def _one_game_states(game):
@@ -318,10 +319,24 @@ def test_render_and_action_to_string_match_jax(game, capsys, monkeypatch):
 
 
 def test_breakout_make_env_refuses_where_jax_would_play_ale(monkeypatch):
+    """Without ale-py the on-device Breakout; where ale-py imports, ALE
+    Breakout on the host (envs/host.py AtariBreakout), as the JAX package's
+    make_env does. ale-py is absent here: a stand-in module takes its place,
+    and gymnasium.make hands out the fake ALE backend of test_misc_envs.py."""
+    import sys
+    import types
+
+    import gymnasium
+
+    from muzero_general_tpu_torch.envs import host
+    from test_misc_envs import _FakeALE
+
     module = load_game_module("breakout")
+    assert importlib.util.find_spec("ale_py") is None
     assert isinstance(module.make_env(device="cpu"), breakout.Breakout)
-    find_spec = importlib.util.find_spec
-    monkeypatch.setattr(importlib.util, "find_spec",
-                        lambda name, *a: object() if name == "ale_py" else find_spec(name, *a))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        module.make_env(device="cpu")
+    monkeypatch.setitem(sys.modules, "ale_py", types.ModuleType("ale_py"))
+    made = []
+    monkeypatch.setattr(gymnasium, "make", lambda name, **kw: made.append(name) or _FakeALE())
+    env = module.make_env(seed=1, device="cpu")
+    assert isinstance(env, host.AtariBreakout) and env.host_env and made == ["ALE/Breakout-v5"]
+    assert env.reset().shape == (3, 96, 96)

@@ -27,7 +27,6 @@ import ast
 import copy
 import json
 import pathlib
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -490,17 +489,24 @@ def no_plots(monkeypatch):
 
 
 def test_unported_branches_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MuZero("cartpole", split_resources_in=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MuZero("cartpole", devices=["cpu"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # Device groups of one device (search.py's) are ported: they pin the
+    # instance to that device. A group of more than one device needs a mesh,
+    # which, like `distributed` and mesh_dp > 1, is item 9b.
+    assert MuZero("cartpole", split_resources_in=2, device="cpu").device == torch.device("cpu")
+    mz = MuZero("cartpole", devices=["cpu"])
+    assert mz.device == torch.device("cpu") and mz._devices == [torch.device("cpu")]
+    assert {p.device for p in mz.network.parameters()} == {torch.device("cpu")}
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        MuZero("cartpole", devices=["cpu", "meta"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9b"):
         MuZero("cartpole", distributed=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MuZero("cartpole")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MuZero("cartpole", split_resources_in=2)
     base = dict(OVR, results_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         MuZero("cartpole", dict(base, mesh_dp=2), device="cpu").train(log_in_tensorboard=False)
     # Device replay (item 7) and the Gumbel search (item 6) are ported
     # (tests/test_torch_device_replay.py, tests/test_torch_gumbel.py): device
@@ -515,8 +521,14 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
     mz = MuZero("cartpole", dict(base, use_gumbel_mcts=True, max_moves=4), device="cpu")
     game = evaluate.play_against_opponent(mz.make_env(), mz.network, mz.config, "self", 0)
     assert 1 <= len(game) <= 4
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_muzero.hyperparameter_search("cartpole", None, 20, 1, 10)
+    # hyperparameter_search is ported (tests/test_torch_search.py): it runs
+    # search.py's loop on the caller's device.
+    from muzero_general_tpu_torch import search
+
+    calls = []
+    monkeypatch.setattr(search, "one_plus_one_search", lambda *a, **k: calls.append((a, k)))
+    port_muzero.hyperparameter_search("cartpole", None, 20, 1, 10, device="cpu")
+    assert calls == [(("cartpole", None, 20, 1, 10), {"device": "cpu"})]
     mz = MuZero("cartpole", dict(base), device="cpu")
     # diagnose_model is ported (tests/test_torch_diagnose.py): it runs, its
     # plots recorded instead of drawn.
@@ -524,15 +536,18 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
     virtual, real, _ = mz.diagnose_model(horizon=2)
     assert len(virtual.action_history) == 2 and real.mcts_depth
     assert drawn == ["mcts", "Virtual trajectory: ", "Real trajectory: "]
-    mz.make_env = lambda: SimpleNamespace(host_env=True, device=mz.device)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mz.train(log_in_tensorboard=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mz.test()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        evaluate.play_against_opponent(mz.make_env(), mz.network, mz.config, "random", 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        evaluate.manual_game(mz.make_env())
+    # Host envs are ported (tests/test_torch_hostplay.py,
+    # tests/test_torch_host_muzero.py): the host driver plays them, and
+    # evaluation and the manual game take them.
+    mz = MuZero("lunarlander", dict(base, max_moves=3), device="cpu")
+    assert isinstance(mz._make_driver(mz.network), port_muzero.HostSelfPlayDriver)
+    assert np.isfinite(mz.test())
+    game = evaluate.play_against_opponent(mz.make_env(), mz.network, mz.config, "random", 0)
+    assert 1 <= len(game) <= 3 and game.observations.shape[1:] == (1, 1, 8)
+    moves = iter(["2"] * 1000)
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(moves))
+    evaluate.manual_game(mz.make_env())
+    assert next(moves) == "2"  # the lander came down before 1,000 main-engine moves
 
 
 _FORBIDDEN = {"jax", "flax", "optax", "muzero_general_tpu"}
@@ -560,8 +575,8 @@ def test_port_and_card_scripts_import_nothing_of_jax():
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py",
               REPO / "tests" / "test_torch_e2e_learning.py"]
     assert len(files) > 40
-    for module in ("gumbel", "device_replay"):
-        assert REPO / "muzero_general_tpu_torch" / "ops" / f"{module}.py" in files
+    for module in ("ops/gumbel", "ops/device_replay", "hostplay", "search", "envs/host"):
+        assert REPO / "muzero_general_tpu_torch" / f"{module}.py" in files
     for path in files:
         found = _FORBIDDEN & set(_imports(path))
         assert not found, f"{path.relative_to(REPO)} imports {sorted(found)}"
@@ -600,10 +615,16 @@ def test_cli_menu_reaches_the_ported_methods(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "Diagnose model" in out
     assert "Real trajectory reached Done" in out or "Reached horizon" in out
-    answers = iter(["0", "6"])
+    # "Hyperparameter search" reaches search.py (its runs: test_torch_search.py).
+    from muzero_general_tpu_torch import search
+
+    searches = []
+    monkeypatch.setattr(search, "one_plus_one_search",
+                        lambda *a, **k: searches.append((a, k)))
+    answers = iter(["0", "6", "7"])
     monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_muzero.main([], device="cpu")
+    port_muzero.main([], device="cpu")
+    assert searches == [(("cartpole", None, 20, 1, 10), {"device": "cpu"})]
     answers = iter(["0", "7"])
     monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
     port_muzero.main([], device="cpu")
