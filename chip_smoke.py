@@ -232,14 +232,42 @@ In order, it:
    e. one_plus_one_search on cartpole, budget 2, parallel_experiments 2,
       tiny candidates: on one card the slices collide and the candidates
       run one after the other; their scores and the best;
-17. prints one {"kernels": [...]} JSON line (the fused search's entry with
+17. the mesh (parallel/): two ranks on cuda:0, started by
+   parallel.distributed.launch, meeting over gloo, which the port picks for
+   ranks sharing a card (NCCL refuses two ranks on one card; gloo stages
+   the collectives' CUDA tensors through the host):
+   a. cartpole's FC net, dp = 2: one sharded SGD step on each rank's rows of
+      a seeded global batch against the single-rank step on the whole
+      batch (loss 1e-5 relative, priorities rtol 1e-4 atol 1e-5, updates
+      rtol 5e-3 atol 1e-6), then the sharded step's ms, one rank's and the
+      gradient all_reduce's;
+   b. the same for connect4's ResNet (Adam, the global batch norm), from
+      seed 0's weights with a fresh Adam state (unroll cut to 5, where one
+      rank's float32 step is well-conditioned; each step also against the
+      float64 step) and from the shipped checkpoint with its own (unroll
+      42): losses 1e-4 relative, >= 99% of params within 1e-5 and the
+      running statistics (phase 12's rule);
+   c. an mp = 2 step of the 512-wide FC net (column-parallel layers);
+   d. after each step the ranks' parameters are bit-identical;
+   e. self-play with the sharded driver: cartpole at 2 x 2,048 lanes x 50
+      simulations and connect4 at 2 x 128 lanes x 200, the shipped weights:
+      each rank's first move with every launch of kernels 1, 2 and 3 held
+      against its plain version, then timed moves (ms a move per rank);
+   f. global_sum of the ranks' env steps;
+   g. multi-host training: two processes, each
+      MuZero("cartpole", {"training_steps": 50}, distributed={...,
+      "backend": "gloo"}).train(): weights equal at the end, rank 0 alone
+      writing files;
+18. prints one {"kernels": [...]} JSON line (the fused search's entry with
    its train() and test() launches and 15e's under
    "cartpole_device_replay_train_launches" and 16e's under
    "hyperparameter_search_launches", the planar kernels' with connect4's
    train() launches, each with the launches of phase 14's games under
    "<game>_selfplay_launches", "<game>_train_launches" and
-   "<game>_test_launches" and phase 16's under "<game>_host_*_launches"),
-   then ends with {"ok": true, "device": {...}}.
+   "<game>_test_launches", phase 16's under "<game>_host_*_launches" and
+   phase 17's per rank under "<kernel>_mesh_launches" and
+   "mcts_fused_search_mesh_train_launches"), then ends with {"ok": true,
+   "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
 phase fails. It imports nothing of JAX.
@@ -3931,6 +3959,420 @@ def host_path_phase(kernels):
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# 17. The mesh (parallel/): two ranks on the card
+# ---------------------------------------------------------------------------
+
+# Two ranks share cuda:0. NCCL refuses two ranks on one card, so the port
+# picks gloo for them (17a-f: from the cards' UUIDs at the rendezvous; 17g
+# names it in its spec), which stages the collectives' CUDA tensors through
+# the host; the compute stays on the card.
+MESH_DEVICES = ["cuda:0", "cuda:0"]
+MESH_BACKEND = "gloo"
+# A sharded SGD step (no momentum: the update is linear in the gradient)
+# against the single-rank step on the same global batch, at
+# tests/test_sharding.py's tolerances: loss 1e-5 relative, priorities rtol
+# 1e-4 atol 1e-5, updates rtol 5e-3 atol 1e-6. The ResNet (Adam, whose
+# first update is ~lr * sign(g)) keeps phase 12's rule (LEARN_F32: losses
+# 1e-4 relative, the priorities' |value - target| within 1e-4 of the
+# largest |target|, >= 99% of params within 1e-5, the running statistics'
+# tolerance), twice: from seed 0's weights with a fresh Adam state, where
+# every train() starts, and from the shipped checkpoint and its Adam state.
+# From seed 0 the unroll is cut from 42 to MESH_SEED0_UNROLL steps: past
+# ~10 the step from random weights is so ill-conditioned that one rank's
+# own float32 step misses the float64 step by more than LEARN_F32 allows
+# (tools/float64_check.py --cases seed0_unroll: at 42, 6.7e-4 in the loss,
+# |value - target| 3.35 apart, 35% of params beyond 1e-5), so no two float32
+# steps there can be held to it; at 5 one rank's lands well inside it.
+MESH_LOSS_REL, MESH_PRIO, MESH_UPDATE = 1e-5, (1e-4, 1e-5), (5e-3, 1e-6)
+MESH_SEED0_UNROLL = 5
+MESH_TRAIN_STEPS = 50
+
+
+def mesh_batch(cfg, seed):
+    """A seeded global batch at the config's shapes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B, U = cfg.batch_size, cfg.num_unroll_steps
+    A = len(cfg.action_space)
+    c, h, w = cfg.observation_shape
+    n = cfg.stacked_observations
+    return {
+        "observation": rng.normal(size=(B, c * (n + 1) + n, h, w)).astype(np.float32),
+        "action": rng.integers(0, A, (B, U + 1)).astype(np.int32),
+        "target_value": (3 * rng.normal(size=(B, U + 1))).astype(np.float32),
+        "target_reward": rng.normal(size=(B, U + 1)).astype(np.float32),
+        "target_policy": rng.dirichlet(np.ones(A), (B, U + 1)).astype(np.float32),
+        "weight": rng.uniform(0.2, 1.0, B).astype(np.float32),
+        "gradient_scale": rng.integers(1, U + 1, (B, U + 1)).astype(np.float32),
+    }
+
+
+def mesh_step_configs():
+    """(a) cartpole's FC net, (b) connect4's ResNet from seed 0 and from
+    the shipped checkpoint, (c) the 512-wide FC net of
+    tests/test_sharding.py on cartpole's shapes: (key, label, config, mesh
+    shape, the checkpoint to start from or None for seed 0's weights, the
+    rule: "sgd" for test_sharding.py's, "resnet" for LEARN_F32)."""
+    from muzero_general_tpu_torch.games import cartpole, connect4
+
+    def sgd(cfg):
+        cfg.optimizer, cfg.momentum, cfg.weight_decay = "SGD", 0.0, 0.0
+        return cfg
+
+    wide = sgd(cartpole.MuZeroConfig())
+    wide.encoding_size = 512
+    wide.fc_representation_layers = wide.fc_dynamics_layers = [512]
+    seed0 = connect4.MuZeroConfig()
+    seed0.num_unroll_steps = MESH_SEED0_UNROLL
+    return [("a", "cartpole FC", sgd(cartpole.MuZeroConfig()), (2, 1), None, "sgd"),
+            ("b seed 0", f"connect4 ResNet from seed 0, unroll {MESH_SEED0_UNROLL}", seed0,
+             (2, 1), None, "resnet"),
+            ("b checkpoint", "connect4 ResNet from the checkpoint", connect4.MuZeroConfig(),
+             (2, 1), C4_CHECKPOINT, "resnet"),
+            ("c", "512-wide FC", wide, (1, 2), None, "sgd")]
+
+
+def state_digest(state):
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(state):
+        h.update(name.encode())
+        h.update(state[name].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_step_case(label, cfg, shape, checkpoint, rule, seed, timed):
+    """On a rank: one sharded step from seed 0's weights (or `checkpoint`'s,
+    with its optimizer state) on this rank's rows of a seeded global batch,
+    and on rank 0 the single-rank step on the whole batch, compared under
+    `rule` (fail on a mismatch); then, if `timed`, the sharded step's and
+    the single step's times and the gradient all_reduce's. Returns the
+    numbers."""
+    import numpy as np
+
+    from muzero_general_tpu_torch.checkpoint import load_checkpoint, restore_learner
+
+    from muzero_general_tpu_torch.parallel import (
+        create_mesh,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from muzero_general_tpu_torch.parallel import distributed as dist_lib
+    from muzero_general_tpu_torch.parallel.mesh import all_reduce_flat
+    from muzero_general_tpu_torch.trainer import Learner
+
+    def learner():
+        out = Learner(cfg, seed=0)
+        if checkpoint is not None:
+            restore_learner(out, load_checkpoint(checkpoint))
+        return out
+
+    sgd = rule == "sgd"
+    loss_rel = MESH_LOSS_REL if sgd else LEARN_F32["loss_rtol"]
+    mesh = create_mesh(*shape)
+    rank = mesh.rank
+    batch = mesh_batch(cfg, seed)
+    sharded = learner()
+    before = {k: v.detach().cpu().clone() for k, v in sharded.network.state_dict().items()}
+    local = shard_batch(batch, mesh)
+    metrics, priorities = make_sharded_train_step(sharded, mesh)(local)
+    full = sharded.full_state_dict()
+    digests = dist_lib.gather_objects(state_digest(full))
+    shards = dist_lib.gather_objects(priorities.cpu().numpy())
+    out = {"shape": shape, "local_rows": int(local["action"].shape[0])}
+    if rank == 0:
+        if len(set(digests)) != 1:
+            fail(f"17 {label}: the ranks' parameters differ after the step")
+        single = learner()
+        m1, p1 = single.train_step(batch)
+        got_p = np.concatenate(shards[:: shape[1]])
+        want_p = p1.cpu().numpy()
+        loss, want_loss = float(metrics["total_loss"]), float(m1["total_loss"])
+        names = dict(single.network.named_parameters())
+        errors = []
+
+        def gap(a, b):  # the priorities' largest |value - target| difference
+            alpha = cfg.PER_alpha
+            return float(np.abs(np.asarray(a, np.float64) ** (1 / alpha)
+                                - np.asarray(b, np.float64) ** (1 / alpha)).max())
+
+        def param_gaps(got, want):
+            """(largest |got - want|, share beyond LEARN_F32's close) over
+            the parameters."""
+            worst, beyond, total = 0.0, 0, 0
+            for key in names:
+                d = (got[key].double().cpu() - want[key].double().cpu()).abs()
+                worst = max(worst, float(d.max()))
+                beyond += int((d > LEARN_F32["close"]).sum())
+                total += d.numel()
+            return worst, beyond / total
+
+        if not abs(loss - want_loss) <= loss_rel * abs(want_loss):
+            errors.append(f"loss {loss!r} sharded, {want_loss!r} on one rank")
+        if sgd and not np.allclose(got_p, want_p, rtol=MESH_PRIO[0], atol=MESH_PRIO[1]):
+            errors.append(f"priorities differ by {np.abs(got_p - want_p).max()!r}")
+        bound = LEARN_F32["gap_tol"] * max(float(np.abs(batch["target_value"]).max()), 1.0)
+        if not sgd and not gap(got_p, want_p) <= bound:
+            # phase 12's rule: |value - target| within gap_tol of max |target|
+            errors.append(f"|value - target| differs by {gap(got_p, want_p)!r} (bound {bound!r})")
+        ref = single.network.state_dict()
+        for key, want in ref.items():
+            got, want = full[key].double().cpu(), want.double().cpu()
+            if key.endswith(("running_mean", "running_var")):
+                tol = LEARN_F32["stats_tol"]
+                if bool(((got - want).abs() > tol[0] + tol[1] * want.abs()).any()):
+                    errors.append(f"{key} differs by {float((got - want).abs().max())!r}")
+            elif sgd and key in names:
+                d = ((got - before[key].double()) - (want - before[key].double())).abs()
+                bound = MESH_UPDATE[1] + MESH_UPDATE[0] * (want - before[key].double()).abs()
+                if bool((d > bound).any()):
+                    errors.append(f"{key}'s update differs by {float(d.max())!r}")
+        worst, beyond = param_gaps(full, ref)
+        if not sgd and beyond > 0.01:
+            errors.append(f"{100 * beyond:.3f}% of params beyond {LEARN_F32['close']}")
+        out.update(loss=loss, loss_rel=abs(loss - want_loss) / abs(want_loss),
+                   prio_err=float(np.abs(got_p - want_p).max()), param_err=worst,
+                   beyond=beyond)
+        if checkpoint is None and not sgd:
+            # Seed 0's step against the exact one: the same step on one
+            # rank in float64 (tools/float64_check.py's to_float64). How
+            # far one rank's float32 step lands from it is the yardstick of
+            # how far rounding alone carries this step.
+            from muzero_general_tpu_torch.tools.float64_check import to_float64
+
+            exact = to_float64(learner())
+            m64, p64 = exact.train_step(batch)
+            l64, p64 = float(m64["total_loss"]), p64.cpu().numpy()
+            f64 = exact.network.state_dict()
+            out["from_f64"] = {
+                name: {"loss_rel": abs(value - l64) / abs(l64), "gap": gap(p, p64),
+                       "param_err": param_gaps(state, f64)[0],
+                       "beyond": param_gaps(state, f64)[1]}
+                for name, value, p, state in (("sharded", loss, got_p, full),
+                                              ("one_rank", want_loss, want_p, ref))}
+        if errors:
+            log(f"17 {label}: {json.dumps(out)}")
+            fail(f"17 {label}: " + "; ".join(errors))
+    # Times: the sharded step (both ranks at once), the single-rank step
+    # (rank 0 alone, rank 1 waiting), the gradient all_reduce. The ResNet's
+    # sharded step is timed once, after the compared step (~8 s: its batch
+    # norms' collectives, ROADMAP).
+    if not timed:
+        return out
+    step = make_sharded_train_step(sharded, mesh)
+    reps = 5 if sgd else 1
+    if sgd:
+        step(local)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(local)
+    torch.cuda.synchronize()
+    out["sharded_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    torch.distributed.barrier()
+    if rank == 0:
+        single.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            single.train_step(batch)
+        torch.cuda.synchronize()
+        out["single_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    torch.distributed.barrier()
+    group = mesh.dp_group if mesh.dp_group is not None else mesh.mp_group
+    grads = torch.zeros(sum(p.numel() for p in sharded.network.parameters()), device="cuda")
+    all_reduce_flat([grads], group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_reduce_flat([grads], group)
+    torch.cuda.synchronize()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    out["grad_floats"] = grads.numel()
+    return out
+
+
+def zero_kernel_counts():
+    from muzero_general_tpu_torch.ops import mcts_fused, mcts_kernels
+
+    mcts_fused.search.launches = 0
+    mcts_kernels.descend_planar.launches = 0
+    mcts_kernels.backprop.launches = 0
+
+
+def mesh_selfplay(label, module, lanes, sims, checkpoint, timed_moves):
+    """On a rank: the dp = 2 driver of 2 x `lanes` lanes x `sims`
+    simulations with the shipped weights: the first move with every launch
+    of this rank held against its plain version, then `timed_moves` timed
+    moves (ms a move on this rank, both ranks playing at once). Returns the
+    numbers and this rank's launches."""
+    from muzero_general_tpu_torch.models import MuZeroNetwork
+    from muzero_general_tpu_torch.parallel import create_mesh
+    from muzero_general_tpu_torch.parallel import distributed as dist_lib
+    from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+
+    mesh = create_mesh(2, 1)
+    cfg = module.MuZeroConfig()
+    cfg.parallel_games, cfg.num_simulations = 2 * lanes, sims
+    net = load_pretrained(MuZeroNetwork(cfg, seed=0), checkpoint)
+    driver = SelfPlayDriver(module.make_env(device=torch.device("cuda")), net, cfg, seed=0,
+                            mesh=mesh)
+    if (driver.lanes, driver.lane0) != (lanes, mesh.rank * lanes):
+        fail(f"17e {label}: rank {mesh.rank} plays lanes {driver.lane0}+{driver.lanes}")
+    names = (("mcts_fused_search",) if driver.search_route == "fused"
+             else ("descend_planar", "backprop"))
+    zero_kernel_counts()
+    with CheckedLaunches(f"{label} rank {mesh.rank}") as checked:
+        driver.play(1.0, num_moves=1)
+    first = {n: checked.launches()[n] for n in names}
+    done = checked.checked()
+    want = 1 if driver.search_route == "fused" else sims
+    if set(done) != set(names) or any(n != want for n in first.values()):
+        fail(f"17e {label} rank {mesh.rank}: launches {first} (want {want}), checked {done}")
+    zero_kernel_counts()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    _, stats = driver.play(1.0, num_moves=timed_moves)
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - t0) * 1e3 / timed_moves
+    timed = {n: c for n, c in kernel_counts().items() if n in names}
+    if any(c != timed_moves * want for c in timed.values()):
+        fail(f"17e {label} rank {mesh.rank}: {timed} over {timed_moves} moves")
+    steps = dist_lib.global_sum(driver.lanes * (1 + timed_moves))
+    if steps != driver.G * (1 + timed_moves):
+        fail(f"17f: global_sum of env steps {steps}, want {driver.G * (1 + timed_moves)}")
+    return {"route": driver.search_route, "checked": done, "move_ms": move_ms,
+            "launches": {n: first[n] + timed[n] for n in names}, "global_steps": steps,
+            "env_steps_stat": stats["env_steps"]}
+
+
+def mesh_rank():
+    """One rank of phase 17a-f (dist_lib.launch)."""
+    from muzero_general_tpu_torch.games import cartpole, connect4
+
+    out = {"steps": {}, "backend": torch.distributed.get_backend()}
+    if out["backend"] != MESH_BACKEND:
+        fail(f"17: ranks sharing {MESH_DEVICES[0]} meet over {out['backend']}")
+    for key, label, cfg, shape, checkpoint, rule in mesh_step_configs():
+        out["steps"][key] = (label, mesh_step_case(label, cfg, shape, checkpoint, rule, seed=17,
+                                                   timed=key != "b seed 0"))
+    out["cartpole"] = mesh_selfplay("cartpole", cartpole, 2048, 50, CART_CHECKPOINT, 8)
+    out["connect4"] = mesh_selfplay("connect4", connect4, 128, 200, C4_CHECKPOINT, 2)
+    return out
+
+
+def mesh_train_rank(rank, address, root):
+    """One process of phase 17g: MuZero(..., distributed=...).train(). The
+    phase hosts the rendezvous store (dist_lib.host_store)."""
+    import os
+    import pickle
+
+    from muzero_general_tpu_torch import MuZero
+    from muzero_general_tpu_torch.models import params_from_jax
+
+    from muzero_general_tpu_torch.parallel import distributed as dist_lib
+
+    os.environ[dist_lib.AGENT_STORE] = "True"
+    path = pathlib.Path(root) / f"rank{rank}"
+    mz = MuZero("cartpole", {"training_steps": MESH_TRAIN_STEPS, "results_path": str(path)},
+                distributed={"coordinator_address": address, "num_processes": 2,
+                             "process_id": rank, "local_device_ids": [0],
+                             "backend": MESH_BACKEND})
+    zero_kernel_counts()
+    ckpt, train_s = timed_train(mz)
+    weights = {k: v for k, v in params_from_jax(ckpt["weights"]).items()}
+    out = {"training_step": ckpt["training_step"], "train_s": train_s,
+           "digest": state_digest(weights), "files": sorted(p.name for p in path.iterdir()),
+           "launches": kernel_counts()["mcts_fused_search"], "phase_time": mz.phase_time,
+           "loss": ckpt["total_loss"], "played": ckpt["num_played_steps"],
+           "backend": torch.distributed.get_backend(), "device": str(mz.device)}
+    with open(pathlib.Path(root) / f"out{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_phase(kernels):
+    """Phase 17: the mesh (parallel/), two ranks sharing the card over gloo.
+    Adds the ranks' launches to the kernels' entries."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from muzero_general_tpu_torch.parallel import distributed as dist_lib
+
+    t_phase = time.perf_counter()
+    entries = {k["name"]: k for k in kernels}
+    ranks = dist_lib.launch(mesh_rank, MESH_DEVICES)
+    log(f"[mesh] 17a-f: {len(ranks)} ranks on {MESH_DEVICES[0]}, backend chosen "
+        f"{ranks[0]['backend']} (ranks sharing a card), in "
+        f"{time.perf_counter() - t_phase:.1f} s (spawn and imports included)")
+    for key, (label, r0) in ranks[0]["steps"].items():
+        r1 = ranks[1]["steps"][key][1]
+        times = ("" if "sharded_ms" not in r0 else
+                 f"; sharded step {r0['sharded_ms']:.3f} / {r1['sharded_ms']:.3f} ms (rank 0 / "
+                 f"1) against one rank's {r0['single_ms']:.3f} ms; gradient all_reduce of "
+                 f"{r0['grad_floats']} floats {r0['all_reduce_ms']:.3f} ms")
+        log(f"[mesh step {key}] {label}, (dp, mp) = {r0['shape']}, {r0['local_rows']} rows a "
+            f"rank: loss {r0['loss']!r} ({r0['loss_rel']:.3g} relative from one rank's), "
+            f"priorities within {r0['prio_err']:.3g}, updates within {r0['param_err']:.3g} "
+            f"({100 * r0['beyond']:.3f}% beyond {LEARN_F32['close']}); the ranks' parameters "
+            f"bit-identical" + times)
+        if "from_f64" in r0:
+            log(f"[mesh step {key}] from the float64 step on one rank: " + "; ".join(
+                f"{name} loss {d['loss_rel']:.3g} relative, |value - target| within "
+                f"{d['gap']:.3g}, params within {d['param_err']:.3g} "
+                f"({100 * d['beyond']:.3f}% beyond {LEARN_F32['close']})"
+                for name, d in r0["from_f64"].items()))
+    for game, lanes, sims in (("cartpole", 2048, 50), ("connect4", 128, 200)):
+        for rank, r in enumerate(ranks):
+            sp = r[game]
+            log(f"[mesh selfplay {game}] rank {rank}: {lanes} lanes x {sims} sims "
+                f"({sp['route']} route), first move's launches checked against the plain "
+                f"versions: " + ", ".join(f"{n} {c} equal (max |d| {e!r})"
+                                          for n, (c, e) in sp["checked"].items())
+                + f"; {sp['move_ms']:.3f} ms a move with both ranks playing; launches "
+                f"{sp['launches']}; global_sum of env steps {sp['global_steps']:.0f}")
+        for name in ranks[0][game]["launches"]:
+            entries[name][f"{name}_mesh_launches"] = [r[game]["launches"][name] for r in ranks]
+
+    # ---- 17g. multi-host training: two processes, distributed=... ------------
+    t0 = time.perf_counter()
+    root = REPO / "results" / "chip_smoke" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    store, address = dist_lib.host_store()
+    mp.spawn(mesh_train_rank, args=(address, str(root)), nprocs=2, join=True)
+    del store
+    outs = []
+    for rank in range(2):
+        with open(root / f"out{rank}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    if ([o["training_step"] for o in outs] != [MESH_TRAIN_STEPS] * 2
+            or outs[0]["digest"] != outs[1]["digest"]
+            or "model.checkpoint" not in outs[0]["files"] or outs[1]["files"]
+            or not all(o["launches"] for o in outs)
+            or {(o["backend"], o["device"]) for o in outs} != {("gloo", "cuda:0")}):
+        fail(f"17g: {[{k: o[k] for k in ('training_step', 'files', 'launches', 'backend')} for o in outs]}")
+    entries["mcts_fused_search"]["mcts_fused_search_mesh_train_launches"] = [
+        o["launches"] for o in outs]
+    for rank, o in enumerate(outs):
+        log(f"[mesh train] rank {rank}: MuZero('cartpole', distributed=...).train() "
+            f"{MESH_TRAIN_STEPS} steps in {o['train_s']:.2f} s "
+            f"({MESH_TRAIN_STEPS / o['train_s']:.1f} steps/s), loss {o['loss']:.4f}, its own "
+            f"{o['played']} env steps, fused-search launches {o['launches']}; files "
+            f"{o['files']}; phase split {phase_split(o['phase_time'], o['train_s'])}")
+    log(f"[mesh train] weights equal on both ranks (sha256 {outs[0]['digest'][:16]}); rank 1 "
+        f"wrote nothing; 17g in {time.perf_counter() - t0:.1f} s with the spawn")
+    seconds = time.perf_counter() - t_phase
+    log(f"[done] phase 17 in {seconds:.1f} s")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3977,6 +4419,8 @@ def main():
     device_replay_phase(cart_replay, c4_replay, kernels, host_train["train_s"])
     log(f"[done] Gumbel and device replay after {time.perf_counter() - t_start:.1f} s")
     host_path_phase(kernels)
+    log(f"[done] host path after {time.perf_counter() - t_start:.1f} s")
+    mesh_phase(kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from muzero_general_tpu_torch.models.network import params_from_jax, params_to_jax
+from muzero_general_tpu_torch.parallel.mesh import gather_sharded
 from muzero_general_tpu_torch.trainer import LOSS_KEYS
 
 CHECKPOINT_KEYS = [
@@ -150,12 +151,12 @@ def load_replay_buffer(path) -> dict:
 
 def _per_param(learner, key):
     """{parameter name: the optimizer's `key` tensor} (zeros before the
-    first update)."""
+    first update), mp-sharded moments gathered whole on a mesh."""
     state = learner.optimizer.state
-    return {
+    return gather_sharded({
         name: state[p][key] if key in state.get(p, {}) else torch.zeros_like(p)
         for name, p in learner.network.named_parameters()
-    }
+    }, learner)
 
 
 def optimizer_state_to_jax(learner) -> dict:
@@ -228,9 +229,11 @@ def restore_learner(learner, checkpoint: dict):
 def sync_state(checkpoint: dict, learner, replay):
     """Write the learner's weights and optimizer state and the played
     counters into the checkpoint dict (JAX muzero.py:155-160 _sync_checkpoint).
+    On a mesh with mp > 1 the weights and moments are gathered whole, so
+    every rank of the mesh must call it.
     The losses stay as they are: the final persist (muzero.py:740-742) writes
     only these."""
-    checkpoint["weights"] = params_to_jax(learner.network)
+    checkpoint["weights"] = params_to_jax(learner.full_state_dict())
     checkpoint["optimizer_state"] = optimizer_state_to_jax(learner)
     checkpoint["num_played_games"] = replay.num_played_games
     checkpoint["num_played_steps"] = replay.num_played_steps

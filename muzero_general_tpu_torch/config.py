@@ -110,8 +110,10 @@ class MuZeroConfig:
         self.selfplay_chunk_moves = 8
         # Used: loops between evaluation games against a scripted opponent.
         self.eval_interval_loops = 4
-        # The port runs on one device: values above 1 raise in
-        # MuZero.train (ROADMAP queue 1 item 9b).
+        # Used: the dp x mp mesh of MuZero.train (parallel/mesh.py
+        # mesh_shape): mesh_dp None gives every device of the group or
+        # fleet that mp leaves to dp; above one device, train() runs one
+        # rank per device.
         self.mesh_dp = None
         self.mesh_mp = 1
         # Used: the networks' compute dtype, read as the JAX package reads

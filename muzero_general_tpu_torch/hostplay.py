@@ -32,9 +32,13 @@ What of the JAX package's hostplay.py is where:
   with the driver's seed. `play(root_noise=...)` takes the root noise per
   dispatch instead (the tests inject JAX's Dirichlet draw).
 
-The JAX driver shards its lanes over a dp mesh; the port runs on one
-device, and a mesh with dp > 1 raises NotImplementedError (ROADMAP queue 1
-item 9b).
+On a mesh the JAX driver places its lanes' searches over dp
+(JAX :26-33). The port's rank at dp index i steps the host envs of lanes
+[i * G/dp, (i+1) * G/dp) (each seeded with its global lane index, as
+unsharded) and dispatches their searches on its own device, with its own
+generators; the shards' games and stats are gathered to rank 0 in lane
+order after each play() (selfplay.py shard_lanes and gather_play, which
+also run self-play unsharded on rank 0 where dp does not divide G).
 """
 
 from typing import Optional
@@ -47,46 +51,49 @@ from muzero_general_tpu_torch.models import activation_dtype, fold_bn
 from muzero_general_tpu_torch.models.resnet import ResMuZero
 from muzero_general_tpu_torch.ops import mcts as mcts_ops
 from muzero_general_tpu_torch.replay import GameHistory
+from muzero_general_tpu_torch.selfplay import SHARD_SEED_STRIDE, gather_play, shard_lanes
 
 
 class HostSelfPlayDriver:
+    """`G` lanes in all; `lanes` of them, from lane `lane0` on, stepped and
+    searched by this rank (all G without a mesh)."""
+
     def __init__(self, env_factory, network, config, num_games: Optional[int] = None,
                  seed: Optional[int] = None, mesh=None, greedy_lanes: int = 0, device=None):
-        if mesh is not None and dict(getattr(mesh, "shape", {})).get("dp", 1) > 1:
-            raise NotImplementedError(
-                "sharding the host driver's lanes over a mesh is not ported yet "
-                "(ROADMAP queue 1 item 9b)")
         self.device = resolve_device(device)
         self.config = config
         self.network = network
         self.G = num_games or config.parallel_games
         self.greedy_lanes = greedy_lanes
+        self.dp, self.lanes, self.lane0 = shard_lanes(self.G, mesh)
         base_seed = config.seed if seed is None else seed
-        self.envs = [env_factory(seed=base_seed + i) for i in range(self.G)]
-        env0 = self.envs[0]
+        self.envs = [env_factory(seed=base_seed + self.lane0 + i) for i in range(self.lanes)]
+        env0 = self.envs[0] if self.envs else env_factory(seed=base_seed)
         self.A = env0.num_actions
         self.obs_shape = tuple(env0.observation_shape)
         self.n = config.stacked_observations
         # `host_pipeline` splits an even fleet into two halves (JAX :38-47,
         # :193-199) that dispatch G/2-lane searches; the spec's kernel gate
         # sees the batch the device actually searches.
-        self.pipelined = bool(config.host_pipeline) and self.G >= 2 and self.G % 2 == 0
-        self.search_batch = self.G // 2 if self.pipelined else self.G
-        self.spec = mcts_ops.SearchSpec.from_config(config, batch_size=self.search_batch,
+        self.pipelined = (bool(config.host_pipeline) and self.lanes >= 2
+                          and self.lanes % 2 == 0)
+        self.search_batch = self.lanes // 2 if self.pipelined else self.lanes
+        self.spec = mcts_ops.SearchSpec.from_config(config, batch_size=max(1, self.search_batch),
                                                     device=self.device)
         # BN folding for the search (ResNet nets, e.g. atari), as selfplay.py.
         self.fold_bn = (bool(getattr(config, "fold_bn_inference", True))
                         and isinstance(network, ResMuZero))
         self.act_dtype = activation_dtype(config)
-        self.generator = torch.Generator(device=self.device).manual_seed(base_seed)
-        self.host_generator = torch.Generator().manual_seed(base_seed)
+        draw_seed = base_seed + (SHARD_SEED_STRIDE * mesh.dp_index if self.dp > 1 else 0)
+        self.generator = torch.Generator(device=self.device).manual_seed(draw_seed)
+        self.host_generator = torch.Generator().manual_seed(draw_seed)
         self._pin = self.device.type == "cuda"
 
         # Rings: slot 0 = newest
-        self._obs_hist = np.zeros((self.G, self.n + 1) + self.obs_shape, np.float32)
-        self._act_hist = np.zeros((self.G, self.n + 1), np.int32)
-        self._move_count = np.zeros(self.G, np.int32)
-        self._records = [self._empty() for _ in range(self.G)]
+        self._obs_hist = np.zeros((self.lanes, self.n + 1) + self.obs_shape, np.float32)
+        self._act_hist = np.zeros((self.lanes, self.n + 1), np.int32)
+        self._move_count = np.zeros(self.lanes, np.int32)
+        self._records = [self._empty() for _ in range(self.lanes)]
         for g, env in enumerate(self.envs):
             self._obs_hist[g, 0] = env.reset()
 
@@ -140,7 +147,8 @@ class HostSelfPlayDriver:
         noise = None
         if add_noise:
             if root_noise is not None:
-                noise = torch.from_numpy(np.array(root_noise(lo, hi), np.float32))
+                noise = torch.from_numpy(np.array(
+                    root_noise(self.lane0 + lo, self.lane0 + hi), np.float32))
             else:
                 noise = mcts_ops.sample_gamma(self.spec.dirichlet_alpha, (B, self.A),
                                               self.host_generator)
@@ -188,7 +196,7 @@ class HostSelfPlayDriver:
             # temperature 0 after the threshold (reference self_play.py:151-157)
             action = np.where(self._move_count[lo:hi] >= tt, greedy, action)
         if self.greedy_lanes:
-            lanes = np.arange(lo, hi)
+            lanes = self.lane0 + np.arange(lo, hi)
             action = np.where(lanes < self.greedy_lanes, greedy, action)
 
         for j, g in enumerate(range(lo, hi)):
@@ -205,7 +213,7 @@ class HostSelfPlayDriver:
             self._move_count[g] += 1
             done = done or self._move_count[g] >= self.config.max_moves
             if done:
-                sink = eval_games if g < self.greedy_lanes else completed
+                sink = eval_games if self.lane0 + g < self.greedy_lanes else completed
                 sink.append(self._finish(g, env.to_play()))
                 obs2 = env.reset()
                 self._obs_hist[g] = 0
@@ -224,7 +232,8 @@ class HostSelfPlayDriver:
         in stats["eval_games"], never in the returned replay list.
 
         root_noise: optional callable (lo, hi) -> [hi - lo, A] Gamma draws
-        of the Dirichlet root noise for one dispatch of lanes [lo, hi),
+        of the Dirichlet root noise for one dispatch of lanes [lo, hi) (of
+        all G: a shard passes its global lane numbers),
         called once per dispatch in dispatch order (default: drawn from the
         host generator).
 
@@ -237,10 +246,13 @@ class HostSelfPlayDriver:
         the dispatch schedule changes.
         """
         K = num_moves or self.config.selfplay_chunk_moves
+        if not self.lanes:
+            return gather_play([], None, self.dp, self.G, K)
         completed = []
         eval_games = []
         max_depth_seen = 0
-        halves = [(0, self.G // 2), (self.G // 2, self.G)] if self.pipelined else [(0, self.G)]
+        half = self.lanes // 2
+        halves = [(0, half), (half, self.lanes)] if self.pipelined else [(0, self.lanes)]
         net = fold_bn(self.network, self.act_dtype) if self.fold_bn else self.network
 
         def dispatch(lo, hi):
@@ -259,14 +271,14 @@ class HostSelfPlayDriver:
                     # other half's host phase.
                     inflight[h] = dispatch(lo, hi)
 
-        stats = {"env_steps": K * self.G, "max_tree_depth": max_depth_seen,
+        stats = {"env_steps": K * self.lanes, "max_tree_depth": max_depth_seen,
                  "pred_values": np.concatenate(pv_parts),
                  "eval_games": eval_games}
-        if self.greedy_lanes:
+        if self.lane0 < self.greedy_lanes:
             # Running reward of lane 0's in-progress eval episode (records
             # are cleared by _finish, so this is exactly the open episode).
             stats["eval_partial_reward"] = float(np.sum(self._records[0]["rew"]))
-        return completed, stats
+        return gather_play(completed, stats, self.dp, self.G, K)
 
     def _finish(self, g, final_to_play) -> GameHistory:
         p = self._records[g]

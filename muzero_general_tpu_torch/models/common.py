@@ -13,6 +13,19 @@ of compute `dtype` casts its input and its float32 parameters to `dtype` at
 use, its product comes out in `dtype` and is then cast to `out_dtype`, and
 the bias is added in `out_dtype`. Parameters stay float32 in the module, so
 the weight carry and the checkpoint loader see float32 only.
+
+On a mesh (parallel/mesh.py), a Dense or Conv layer whose output features
+JAX's rule shards is column-parallel: `mp_group` is set, the layer holds its
+slice of the output features, and its input and output pass through
+parallel/collectives.py's mp_input and mp_output (an all_gather along the
+feature axis rebuilds the whole activation). The gather follows the layer
+itself, not the batch norm and ReLU after a conv: JAX's rule leaves batch
+norms replicated (their scale, bias and running statistics whole on every
+rank, as in JAX's sharded state and the checkpoint), so each module stays
+whole at its boundary. The price is that each mp rank repeats the batch
+norm and ReLU on all channels, elementwise work small beside the conv's.
+A BatchNorm with `dp_group` set normalises in train mode with the whole dp
+batch's statistics.
 """
 
 import math
@@ -22,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from muzero_general_tpu_torch.parallel.collectives import group_gather, mp_input, mp_output
+
 
 def _all_float32(x, *dtypes):
     return x.dtype == torch.float32 and all(d == torch.float32 for d in dtypes)
@@ -30,7 +45,11 @@ def _all_float32(x, *dtypes):
 class Dense(nn.Linear):
     """nn.Linear with the JAX package's TorchDense precision (see the module
     docstring): `dtype` for the product, `out_dtype` for the output and the
-    bias add. All-float32 runs nn.Linear's own fused product and bias."""
+    bias add. All-float32 runs nn.Linear's own fused product and bias.
+    `mp_group`: the column-parallel layer's group (see the module
+    docstring)."""
+
+    mp_group = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32,
@@ -40,6 +59,11 @@ class Dense(nn.Linear):
         self.out_dtype = out_dtype
 
     def forward(self, x):
+        if self.mp_group is not None:
+            return mp_output(self._local(mp_input(x, self.mp_group)), self.mp_group, -1)
+        return self._local(x)
+
+    def _local(self, x):
         if _all_float32(x, self.compute_dtype, self.out_dtype):
             return super().forward(x)
         y = F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
@@ -98,7 +122,12 @@ class Conv(nn.Conv2d):
     """The JAX package's TorchConv: its init, U(+-1/sqrt(fan_in)) for kernel
     and bias, is nn.Conv2d's default, and its precision is Dense's (`dtype`
     for the product, `out_dtype` for the output and the bias add). Padding
-    is symmetric, `padding` cells a side (default SAME at stride 1)."""
+    is symmetric, `padding` cells a side (default SAME at stride 1).
+    `mp_group`: the column-parallel layer's group (see the module
+    docstring, which says why the channels are gathered right after the
+    conv)."""
+
+    mp_group = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  bias: bool, dtype: torch.dtype = torch.float32,
@@ -111,6 +140,11 @@ class Conv(nn.Conv2d):
         self.out_dtype = out_dtype
 
     def forward(self, x):
+        if self.mp_group is not None:
+            return mp_output(self._local(mp_input(x, self.mp_group)), self.mp_group, 1)
+        return self._local(x)
+
+    def _local(self, x):
         if _all_float32(x, self.compute_dtype, self.out_dtype):
             return super().forward(x)
         y = self._conv_forward(x.to(self.compute_dtype),
@@ -164,13 +198,28 @@ class BatchNorm(nn.BatchNorm2d):
     mode: the learner clears it while a rematerialized unroll step runs its
     forward a second time (trainer.py), so each inference updates them once,
     as flax's carried `batch_stats` do.
+
+    `dp_group` (set on a mesh, parallel/mesh.py shard_train_state): train
+    mode normalises with the statistics of the whole dp batch, as JAX's
+    sharded step does. Each rank's count, per-channel mean and two-pass sum
+    of squared deviations (M2) are gathered over the group in one collective
+    (collectives.group_gather, whose backward sums the gradients too) and
+    merged as Chan et al.'s parallel variance does. That stays as exact as
+    one rank's two-pass variance where a channel's mean dwarfs its spread,
+    where flax's E[x^2] - E[x]^2 cancels; flax's clamp of the variance at 0
+    is kept. The running statistics move with the global ones. Every rank
+    of the group must run the same forwards: the learner's rematerialized
+    rerun repeats the collective on every rank, in the same order.
     """
 
     update_stats = True
+    dp_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.dp_group is not None:
+            return self._global_batch_norm(x)
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
@@ -179,6 +228,25 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         # No running statistics passed: normalise by the batch's own.
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_batch_norm(self, x):
+        c = x.shape[1]
+        count = x.new_full((1,), x.shape[0] * x.shape[2] * x.shape[3])
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        ranks = group_gather(torch.cat([count, mean, var * count]), self.dp_group)
+        counts, means, m2 = ranks[:, :1], ranks[:, 1:c + 1], ranks[:, c + 1:]
+        total = counts.sum()
+        mean = (counts * means).sum(0) / total
+        m2 = m2.sum(0) + (counts * (means - mean) ** 2).sum(0)
+        var = (m2 / total).clamp_min(0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 def batch_norm(channels: int) -> BatchNorm:

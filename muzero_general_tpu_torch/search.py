@@ -14,9 +14,10 @@ the reference's default (1+1) behavior. Parametrization:
     {"lr_init": ("log", 1e-4, 0.1), "discount": ("linear", 0.95, 0.9999)}
 
 The fleet is every CUDA card (`cuda:i`), or the CPU when the caller asks
-for it; a slice is one device (MuZero's device groups; a slice of several
-needs a mesh, ROADMAP queue 1 item 9b). On one card λ > 1 collides and
-runs sequentially, as the JAX package does on one chip.
+for it; a slice is a MuZero device group: one device, or several, which
+the candidate's train() runs as a mesh, one rank a device
+(MuZero(devices=slice)). On one card λ > 1 collides and runs
+sequentially, as the JAX package does on one chip.
 """
 
 import datetime

@@ -35,7 +35,16 @@ Evaluation is folded in as greedy lanes: lanes [0, greedy_lanes) play at
 temperature 0 inside the same batch and their episodes come back in
 stats["eval_games"] (the reference's test-mode worker, self_play.py:54-90).
 
-The mesh/dp sharding of lanes (ROADMAP queue 1 item 9b) is not ported.
+On a mesh (parallel/mesh.py; JAX selfplay.py:66-92, :280-325) the G lanes
+split over dp: the rank at dp index i searches lanes [i * G/dp, (i+1) *
+G/dp) on its own device, with its own generators (seeded seed + 100003 *
+i, so the shards' games differ), and no collectives while it plays; its
+mp peers (mp index > 0) search nothing. The greedy eval lanes are the
+first lanes, on rank 0. After each play() the shards' games and stats
+are gathered to rank 0, in lane order, so rank 0 returns what an
+unsharded driver of G lanes returns; the other ranks return no games.
+When dp does not divide G, self-play runs unsharded on rank 0, with JAX's
+message.
 """
 
 import logging
@@ -56,10 +65,56 @@ from muzero_general_tpu_torch.ops.stacking import (
     reset_history,
     stack_observations,
 )
+from muzero_general_tpu_torch.parallel import distributed as dist_lib
 from muzero_general_tpu_torch.replay import GameHistory
 
 
 _log = logging.getLogger(__name__)
+
+# Seed offset between the generators of two shards (and of two processes'
+# self-play in multi-host training, JAX muzero.py:338).
+SHARD_SEED_STRIDE = 100003
+
+
+def shard_lanes(G, mesh):
+    """(dp, lanes, first lane) of this rank's share of G lanes on `mesh`:
+    G/dp lanes at dp_index * G/dp where dp divides G (mp index 0 only),
+    else all G on rank 0 (JAX's message) and none elsewhere."""
+    if mesh is None:
+        return 1, G, 0
+    dp = mesh.shape["dp"]
+    if dp > 1 and G % dp:
+        if mesh.rank == 0:
+            print(f"[selfplay] parallel_games={G} not divisible by mesh dp={dp}; "
+                  "running self-play unsharded.")
+        dp = 1
+    if mesh.mp_index != 0 or (dp == 1 and mesh.dp_index != 0):
+        return dp, 0, 0
+    return dp, G // dp, mesh.dp_index * (G // dp)
+
+
+def idle_stats(K):
+    """The play() stats of a rank that searches no lanes."""
+    return {"env_steps": 0, "max_tree_depth": 0, "pred_values": np.zeros((K, 0), np.float32),
+            "eval_games": []}
+
+
+def gather_play(completed, stats, dp, G, K):
+    """Merge the dp shards' play() results on rank 0, in lane order (JAX's
+    records come back [K, G]-sharded, selfplay.py:321); the other ranks get
+    no games and their own stats. `stats` None: a rank with no lanes."""
+    if dp > 1:
+        shards = dist_lib.gather_objects((completed, stats))
+        if shards is not None:
+            shards = [(c, st) for c, st in shards if st is not None]
+            merged = dict(shards[0][1])
+            merged.update(
+                env_steps=K * G,
+                max_tree_depth=max(st["max_tree_depth"] for _, st in shards),
+                pred_values=np.concatenate([st["pred_values"] for _, st in shards], axis=-1))
+            return [gh for c, _ in shards for gh in c], merged
+        completed = []
+    return completed, stats if stats is not None else idle_stats(K)
 
 
 def search_route(config, device: torch.device) -> str:
@@ -102,8 +157,11 @@ class MoveRecord(NamedTuple):
 
 
 class SelfPlayDriver:
+    """`G` lanes in all; `lanes` of them, from lane `lane0` on, searched by
+    this rank (all G without a mesh)."""
+
     def __init__(self, env, network, config, num_games: Optional[int] = None,
-                 seed: Optional[int] = None, greedy_lanes: int = 0, device=None):
+                 seed: Optional[int] = None, greedy_lanes: int = 0, device=None, mesh=None):
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, driver on {self.device}")
@@ -112,7 +170,9 @@ class SelfPlayDriver:
         self.config = config
         self.G = num_games or config.parallel_games
         self.greedy_lanes = greedy_lanes
-        self.spec = mcts_ops.SearchSpec.from_config(config, self.G, self.device)
+        self.mesh = mesh
+        self.dp, self.lanes, self.lane0 = shard_lanes(self.G, mesh)
+        self.spec = mcts_ops.SearchSpec.from_config(config, max(1, self.lanes), self.device)
         self.use_gumbel = bool(config.use_gumbel_mcts)
         if self.use_gumbel:
             self.gumbel_spec = gumbel_ops.GumbelSpec.from_config(config)
@@ -133,13 +193,15 @@ class SelfPlayDriver:
         self._n = config.stacked_observations
         self._obs_shape = tuple(env.observation_shape)
         seed = config.seed if seed is None else seed
+        if self.dp > 1:
+            seed += SHARD_SEED_STRIDE * mesh.dp_index
         # Device draws (env resets, noise, action sampling) and the host draw
         # of each search's tie-jitter key, which needs no device sync.
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._seed_generator = torch.Generator().manual_seed(seed)
         self._carry = None
         # Per-lane lists of record slabs ([T, ...] arrays) awaiting a done cut
-        self._pending = [[] for _ in range(self.G)]
+        self._pending = [[] for _ in range(self.lanes)]
         # Running reward of the greedy eval lane's in-progress episode
         self._eval_partial = 0.0
 
@@ -152,15 +214,18 @@ class SelfPlayDriver:
     # ------------------------------------------------------------------
     def reset(self, start=None):
         """Start fresh episodes in every lane (`start`: optional explicit env
-        start values, as env.reset takes them)."""
-        G, n = self.G, self._n
+        start values for all G lanes, as env.reset takes them; a shard takes
+        its lanes' rows)."""
+        G, n = self.lanes, self._n
+        if start is not None:
+            start = start[self.lane0:self.lane0 + G]
         states = self.env.reset(G, self.generator, start)
         obs_hist = torch.zeros((G, n + 1) + self._obs_shape, device=self.device)
         obs_hist[:, 0] = self.env.observation(states)
         act_hist = torch.zeros((G, n + 1), dtype=torch.int32, device=self.device)
         move_count = torch.zeros((G,), dtype=torch.int32, device=self.device)
         self._carry = SelfPlayCarry(states, obs_hist, act_hist, move_count)
-        self._pending = [[] for _ in range(self.G)]
+        self._pending = [[] for _ in range(G)]
 
     def _puct_move(self, carry, stacked, legal, to_play, temperature, add_noise, net):
         """The pUCT search of one move and its sampled actions: (policy
@@ -238,7 +303,7 @@ class SelfPlayDriver:
         obs_hist, act_hist = push_history(
             carry.obs_hist, carry.act_hist, env.observation(states2), action
         )
-        fresh = env.reset(self.G, self.generator)
+        fresh = env.reset(self.lanes, self.generator)
         states3 = where_state(done, fresh, states2)
         obs_hist, act_hist = reset_history(
             obs_hist, act_hist, env.observation(states3), done
@@ -277,31 +342,38 @@ class SelfPlayDriver:
 
         Returns (list[GameHistory], stats dict). Episodes of the greedy eval
         lanes (lane < greedy_lanes, played at temperature 0) are NOT in the
-        returned list — they arrive in stats["eval_games"].
+        returned list — they arrive in stats["eval_games"]. On a mesh rank 0
+        returns every shard's (gather_play).
         """
         K = num_moves or self.config.selfplay_chunk_moves
-        temp_vec = np.full((self.G,), temperature, np.float32)
-        temp_vec[: self.greedy_lanes] = 0.0
+        completed, stats = self._play_lanes(temperature, K, add_noise) if self.lanes else ([], None)
+        return gather_play(completed, stats, self.dp, self.G, K)
+
+    def _play_lanes(self, temperature, K, add_noise):
+        """play() on this rank's lanes."""
+        temp_vec = np.full((self.lanes,), temperature, np.float32)
+        greedy = max(0, self.greedy_lanes - self.lane0)
+        temp_vec[:greedy] = 0.0
         rec = self.play_chunk(torch.from_numpy(temp_vec), K, add_noise)
         rec = MoveRecord(*(field.cpu().numpy() for field in rec))
 
         completed = []
         eval_games = []
         stats = {
-            "env_steps": K * self.G,
+            "env_steps": K * self.lanes,
             "max_tree_depth": int(rec.max_tree_depth.max()),
             "pred_values": rec.pred_value,
             "eval_games": eval_games,
         }
-        if self.greedy_lanes:
+        if greedy:
             done0 = np.flatnonzero(rec.done[:, 0])
             if done0.size:
                 self._eval_partial = float(rec.reward[done0[-1] + 1 :, 0].sum())
             else:
                 self._eval_partial += float(rec.reward[:, 0].sum())
             stats["eval_partial_reward"] = self._eval_partial
-        for g in range(self.G):
-            sink = eval_games if g < self.greedy_lanes else completed
+        for g in range(self.lanes):
+            sink = eval_games if g < greedy else completed
             done_ks = np.flatnonzero(rec.done[:, g])
             start = 0
             for k in done_ks:

@@ -23,9 +23,18 @@ share beyond `close`, and the card's distance from the CPU's.
 2. the device round: the ResNet (1 x 8 on 3 x 3 x 3, 9 actions, SGD) of
    the card test, its ring of seeded random games, its draws; the round
    (ops/device_replay.make_device_train, M = 1) on the card and on the CPU,
-   and the float64 step on the batch the round draws.
+   and the float64 step on the batch the round draws;
+3. seed0_unroll: connect4's 3 x 64 ResNet from seed 0's weights and a fresh
+   Adam state, where every train() starts, on a seeded random batch of 64
+   (chip_smoke.py's mesh_batch, seed 17), at unroll depths 3 to 42: one
+   float32 step on the card against the float64 step on the card (the
+   loss, the priorities' |value - target| and the params), and against
+   itself run again. How far rounding alone carries this step at each
+   depth is the yardstick for any two float32 steps from seed 0 (the
+   mesh's phase 17b).
 
     python3 muzero_general_tpu_torch/tools/float64_check.py [--batches 3]
+        [--cases device_round,connect4,seed0_unroll]
 
 Prints the card's name and power limit, one line per case, then one JSON
 line of every figure.
@@ -204,10 +213,76 @@ def device_round_case():
                                           exact, 1e-5)}
 
 
+def seeded_batch(cfg, seed):
+    """A seeded random batch at the config's shapes (chip_smoke.py
+    mesh_batch)."""
+    rng = np.random.default_rng(seed)
+    B, U = cfg.batch_size, cfg.num_unroll_steps
+    A = len(cfg.action_space)
+    c, h, w = cfg.observation_shape
+    n = cfg.stacked_observations
+    return {
+        "observation": rng.normal(size=(B, c * (n + 1) + n, h, w)).astype(np.float32),
+        "action": rng.integers(0, A, (B, U + 1)).astype(np.int32),
+        "target_value": (3 * rng.normal(size=(B, U + 1))).astype(np.float32),
+        "target_reward": rng.normal(size=(B, U + 1)).astype(np.float32),
+        "target_policy": rng.dirichlet(np.ones(A), (B, U + 1)).astype(np.float32),
+        "weight": rng.uniform(0.2, 1.0, B).astype(np.float32),
+        "gradient_scale": rng.integers(1, U + 1, (B, U + 1)).astype(np.float32),
+    }
+
+
+def seed0_unroll_case():
+    from muzero_general_tpu_torch.games import connect4
+    from muzero_general_tpu_torch.trainer import Learner
+
+    def step(cfg, batch, exact=False):
+        learner = Learner(cfg, device="cuda", seed=0)
+        if exact:
+            to_float64(learner)
+        metrics, priorities = learner.train_step(batch)
+        return float(metrics["total_loss"]), priorities.double().cpu().numpy(), learner
+
+    def apart(cfg, batch, got, want):
+        (loss, prio, learner), (want_loss, want_prio, exact) = got, want
+        alpha = cfg.PER_alpha
+        gap = float(np.abs(prio ** (1 / alpha) - want_prio ** (1 / alpha)).max())
+        worst, share, _ = distances(learner, exact, 1e-5)
+        return {"loss_rel": abs(loss - want_loss) / abs(want_loss), "gap": gap,
+                "gap_bound": 1e-4 * max(float(np.abs(batch["target_value"]).max()), 1.0),
+                "param_max": worst, "share_beyond": share}
+
+    out = {}
+    for unroll in (3, 5, 10, 20, 30, 42):
+        cfg = connect4.MuZeroConfig()
+        cfg.num_unroll_steps = unroll
+        batch = seeded_batch(cfg, 17)
+        f32, again, exact = step(cfg, batch), step(cfg, batch), step(cfg, batch, exact=True)
+        out[f"unroll_{unroll}"] = row = {"f32_vs_f64": apart(cfg, batch, f32, exact),
+                                         "f32_vs_f32": apart(cfg, batch, f32, again)}
+        print(f"[connect4 seed 0, unroll {unroll}] " + "; ".join(
+            f"{name}: loss {d['loss_rel']:.3g} relative, |value - target| within "
+            f"{d['gap']:.3g} (LEARN_F32 bound {d['gap_bound']:.3g}), params max "
+            f"{d['param_max']:.3g}, {100 * d['share_beyond']:.4f}% beyond 1e-5"
+            for name, d in row.items()), flush=True)
+    return {"connect4_seed0_unroll": out}
+
+
+CASES = {"device_round": lambda args: device_round_case(),
+         "connect4": lambda args: connect4_case(args.batches),
+         "seed0_unroll": lambda args: seed0_unroll_case()}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batches", type=int, default=3)
+    parser.add_argument("--cases", default=",".join(CASES),
+                        help="comma-separated, of " + ", ".join(CASES))
     args = parser.parse_args(argv)
+    cases = args.cases.split(",")
+    unknown = set(cases) - set(CASES)
+    if unknown:
+        parser.error(f"unknown cases {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("float64_check: no CUDA device is available", file=sys.stderr)
         return 1
@@ -215,8 +290,9 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    figures = device_round_case()
-    figures.update(connect4_case(args.batches))
+    figures = {}
+    for case in cases:
+        figures.update(CASES[case](args))
     print(json.dumps({"card": smi, "figures": figures}))
     return 0
 

@@ -28,6 +28,15 @@ Counterparts in the JAX package's trainer.py:
   (models/common.py BatchNorm.update_stats), so remat changes nothing but
   memory.
 
+On a mesh (parallel/mesh.py shard_train_state) the learner is one rank of
+the JAX package's sharded step (make_sharded_train_step): its batch is the
+rank's rows of the global batch, its loss the rank's share of the global
+mean (the per-sample losses summed and divided by the global batch, not
+averaged over the shard), and after the backward one all_reduce over the
+dp group sums the flattened gradients with the four loss metrics. The
+optimizer and schedule then run replicated, so the replicated parameters
+stay bit-identical across ranks. The priorities are the rank's own rows.
+
 A step runs inside one FullPrecision (models/common.py): the forward, the
 backward and the optimizer step, so cuDNN's backward convolutions do not
 fall back to TF32 on the card. At compute_dtype "bfloat16" the products
@@ -46,6 +55,7 @@ from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.models import MuZeroNetwork
 from muzero_general_tpu_torch.models.common import BatchNorm, FullPrecision
 from muzero_general_tpu_torch.ops.support import scalar_to_support, support_to_scalar
+from muzero_general_tpu_torch.parallel.mesh import all_reduce_flat, gather_sharded
 
 LOSS_KEYS = ("total_loss", "value_loss", "reward_loss", "policy_loss")
 
@@ -113,12 +123,14 @@ def _unroll_step(network, support_size, alpha, hidden, action, tv_support,
     return hidden, vl, rl, pl, _priority(value_logits, target_value, support_size, alpha)
 
 
-def loss_fn(network, batch, config, recompute_context=None):
+def loss_fn(network, batch, config, recompute_context=None, global_batch=None):
     """The MuZero loss of a train-mode network on one batch of tensors.
 
     `recompute_context`: None runs the unroll plainly; else each unroll step
     runs under torch.utils.checkpoint, its recomputation inside the context
-    this callable returns. Returns (loss, metrics of 0-d tensors,
+    this callable returns. `global_batch`: on a mesh, the rows of the whole
+    dp batch; the loss and metrics are then this batch's sums over it (its
+    share of the global mean). Returns (loss, metrics of 0-d tensors,
     priorities [B, U+1]), the metrics and priorities detached.
     """
     S, alpha = config.support_size, config.PER_alpha
@@ -162,12 +174,15 @@ def loss_fn(network, batch, config, recompute_context=None):
     if config.PER:
         # IS-weight PER bias correction (reference trainer.py:254-256)
         loss = loss * batch["weight"]
-    loss = loss.mean()
+    def mean(x):
+        return x.mean() if global_batch is None else x.sum() / global_batch
+
+    loss = mean(loss)
     metrics = {
         "total_loss": loss.detach(),
-        "value_loss": value_loss.detach().mean(),
-        "reward_loss": reward_loss.detach().mean(),
-        "policy_loss": policy_loss.detach().mean(),
+        "value_loss": mean(value_loss.detach()),
+        "reward_loss": mean(reward_loss.detach()),
+        "policy_loss": mean(policy_loss.detach()),
     }
     return loss, metrics, torch.stack(priorities, dim=1)
 
@@ -180,7 +195,10 @@ class Learner:
     config (weights drawn from `seed`, default config.seed); load weights
     into it with load_state_dict (or checkpoint.restore_learner). After a
     round of steps, hand them to self-play with
-    `SelfPlayDriver.load_weights(learner.network.state_dict())`.
+    `SelfPlayDriver.load_weights(learner.full_state_dict())`.
+
+    `mesh`: None until parallel.shard_train_state puts the learner on a
+    mesh (see the module docstring).
     """
 
     def __init__(self, config, device=None, seed=None):
@@ -191,6 +209,8 @@ class Learner:
         self.scheduler = make_schedule(self.optimizer, config)
         self.training_step = 0
         self.metrics = None  # the last step's, with "lr"
+        self.mesh = None
+        self.sharded_names = set()  # mp-sharded parameter names on a mesh
         self._norms = [m for m in self.network.modules() if isinstance(m, BatchNorm)]
         self._recompute = (
             self._frozen_batch_stats if getattr(config, "remat_unroll", True) else None
@@ -218,12 +238,40 @@ class Learner:
         return {key: torch.as_tensor(value).to(self.device)
                 for key, value in batch.items()}
 
+    def full_state_dict(self):
+        """The network's state dict with the mp-sharded layers' slices
+        gathered into full arrays (collective over the mp group on a mesh
+        with mp > 1; every rank must call it)."""
+        return gather_sharded(self.network.state_dict(), self)
+
+    def _global_batch(self, batch):
+        if self.mesh is None:
+            return None
+        return batch["action"].shape[0] * self.mesh.shape["dp"]
+
+    def _reduce_over_dp(self, metrics):
+        """One all_reduce over the dp group of the flattened gradients and
+        the loss metrics (each rank's share of the global mean)."""
+        params = list(self.network.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        keys = list(LOSS_KEYS)
+        stacked = torch.stack([metrics[k] for k in keys]).to(params[0].grad.dtype)
+        *grads, summed = all_reduce_flat([p.grad for p in params] + [stacked],
+                                         self.mesh.dp_group)
+        for p, g in zip(params, grads):
+            p.grad.copy_(g)
+        return dict(zip(keys, summed.unbind()))
+
     def _step(self, batch):
         lr = self.lr()
         loss, metrics, priorities = loss_fn(self.network, batch, self.config,
-                                            self._recompute)
+                                            self._recompute, self._global_batch(batch))
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None and self.mesh.dp_group is not None:
+            metrics = self._reduce_over_dp(metrics)
         self.optimizer.step()
         self.scheduler.step()
         self.training_step += 1

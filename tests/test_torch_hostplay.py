@@ -312,15 +312,22 @@ def test_greedy_lanes_and_seeded_sampling():
                for gh in games)  # temperature 1 samples
 
 
-def test_host_driver_refusals():
-    class Mesh:
-        shape = {"dp": 2, "mp": 1}
+def test_host_driver_refusals(capsys):
+    # A dp mesh splits the lanes: rank 0 of a (2, 1) mesh steps lanes 0..G/2
+    # (playing them over ranks: tests/test_torch_mesh.py); a G that dp does
+    # not divide plays unsharded on rank 0, with JAX's message.
+    from muzero_general_tpu_torch.parallel import create_mesh
 
     _, cfg = _configs("lunarlander", False)
     net = MuZeroNetwork(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        HostSelfPlayDriver(load_game_module("lunarlander").make_env, net, cfg, mesh=Mesh(),
-                           device="cpu")
+    mesh = create_mesh(2, 1, devices=["cpu", "cpu"])
+    make_env = load_game_module("lunarlander").make_env
+    driver = HostSelfPlayDriver(make_env, net, cfg, mesh=mesh, device="cpu")
+    assert (driver.G, driver.dp, driver.lanes, driver.lane0, len(driver.envs)) == (2, 2, 1, 0, 1)
+    cfg.parallel_games = 3
+    driver = HostSelfPlayDriver(make_env, net, cfg, mesh=mesh, device="cpu")
+    assert (driver.dp, driver.lanes, driver.lane0) == (1, 3, 0)
+    assert "parallel_games=3 not divisible by mesh dp=2" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             HostSelfPlayDriver(load_game_module("lunarlander").make_env, net, cfg)

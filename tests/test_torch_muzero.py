@@ -489,16 +489,22 @@ def no_plots(monkeypatch):
 
 
 def test_unported_branches_raise(tmp_path, monkeypatch):
-    # Device groups of one device (search.py's) are ported: they pin the
-    # instance to that device. A group of more than one device needs a mesh,
-    # which, like `distributed` and mesh_dp > 1, is item 9b.
+    # Device groups of one device (search.py's) pin the instance to that
+    # device. A group of several devices is train()'s mesh, one rank a
+    # device, as are mesh_dp/mesh_mp asking for more than one device
+    # (tests/test_torch_mesh.py trains on both); `distributed` joins the
+    # multi-host layout (tests/test_torch_distributed.py). What still
+    # raises is what JAX refuses or cannot mean.
     assert MuZero("cartpole", split_resources_in=2, device="cpu").device == torch.device("cpu")
     mz = MuZero("cartpole", devices=["cpu"])
     assert mz.device == torch.device("cpu") and mz._devices == [torch.device("cpu")]
     assert {p.device for p in mz.network.parameters()} == {torch.device("cpu")}
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    pair = MuZero("cartpole", devices=["cpu", "cpu"], device="cpu")
+    assert pair.device == torch.device("cpu") and pair._devices == [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="one kind of device"):
         MuZero("cartpole", devices=["cpu", "meta"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="launcher's environment"):
         MuZero("cartpole", distributed=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -506,8 +512,24 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MuZero("cartpole", split_resources_in=2)
     base = dict(OVR, results_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    # JAX's message for a mesh bigger than the fleet (one CPU here).
+    with pytest.raises(ValueError, match=r"mesh_dp\*mesh_mp = 2\*1 exceeds 1 devices"):
         MuZero("cartpole", dict(base, mesh_dp=2), device="cpu").train(log_in_tensorboard=False)
+    # On a group of two, mesh_dp 2 and mesh_mp 2 each start two ranks, and
+    # train() returns rank 0's checkpoint.
+    launched = []
+
+    def launch(fn, devices, *args):
+        launched.append((fn, [str(d) for d in devices]))
+        return [(dict(args[3], training_step=6), {"train": 1.0}), None]
+
+    monkeypatch.setattr(port_muzero.dist_lib, "launch", launch)
+    for layout in ({"mesh_dp": 2}, {"mesh_dp": 1, "mesh_mp": 2}):
+        mz = MuZero("cartpole", dict(base, **layout), devices=["cpu", "cpu"])
+        assert mz.train(log_in_tensorboard=False)["training_step"] == 6
+        assert launched.pop() == (port_muzero._mesh_rank, ["cpu", "cpu"])
+        assert mz.phase_time == {"train": 1.0}
+    monkeypatch.undo()
     # Device replay (item 7) and the Gumbel search (item 6) are ported
     # (tests/test_torch_device_replay.py, tests/test_torch_gumbel.py): device
     # replay engages where JAX engages it and nowhere else.
