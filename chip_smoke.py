@@ -88,7 +88,7 @@ In order, it:
       of its deepest lane, and the update's floor (the same launch with
       bound 0);
    b. runs SelfPlayDriver on gomoku at 64 lanes x 400 simulations, chunks of
-      2 moves; times 2 chunks after a warm-up, the move loop apart from the
+      2 moves; times 1 chunk after a warm-up, the move loop apart from the
       host's episode cuts; checks the stream route with the BN folded, 400
       launches of each kernel per move and the visit policies (sum 1, none
       on an occupied cell); times the network's and the kernels' device work
@@ -113,7 +113,8 @@ In order, it:
    connect4 K = 1 (pretrained, 256 lanes x 200 sims, the 64-game gate
    against the expert), connect4 K = 8 with bf16 search activations (the
    whole-search check of 4c) and gomoku (64 lanes x 400 sims); each timed
-   as in 4b (2 timed chunks; gomoku's 1), profiled for one move, and
+   as in 4b (one timed chunk: connect4 K = 1's of 4 moves, K = 8's of 8,
+   gomoku's of 1 move), profiled for one move, and
    checked to run its convs on bf16 weights with the hidden store in its
    activation dtype;
 12. the learner (trainer.py), on replay batches from the games of 3d and 4b:
@@ -121,7 +122,7 @@ In order, it:
       steps, remat) from the shipped checkpoint and its Adam state: one
       fused call on the card against the same call on the CPU (losses,
       priorities, params, Adam moments; tolerances at LEARN_F32);
-   b. the card's train-step rate over 12 fused calls, the host's batch
+   b. the card's train-step rate over 4 fused calls, the host's batch
       assembly timed apart; one fused call profiled (launches per step,
       the card's busy share);
    c. the learn loop, 4 rounds of: play a chunk (1,024 lanes, the fused
@@ -138,14 +139,14 @@ In order, it:
       remat: one step's time and peak memory; at batch 16, remat against
       the plain unroll, bit-equal (cuDNN deterministic);
 13. orchestration (muzero.py, evaluate.py), through the user's entry points:
-   a. MuZero("cartpole", {"training_steps": 400}).train() at the shipped
+   a. MuZero("cartpole", {"training_steps": 200}).train() at the shipped
       width (16 lanes x 50 simulations, batch 128, unroll 10, 8 fused
       steps, the prefetcher): train steps/s, env-steps/s, the phase split,
       the fused search's launches, the last greedy reward; then
       test(num_tests=2), the fused search at G = 1, its first 6 launches
       held against search_plain on the same inputs (visits exact);
    b. load_model of (a)'s checkpoint and replay buffer: the learner resumes
-      at step 400 with (a)'s weights bit for bit, and trains 8 more steps;
+      at step 200 with (a)'s weights bit for bit, and trains 8 more steps;
    c. MuZero("connect4", 64 lanes, 16 steps).train(), across one opponent
       evaluation game (the B = 1 search; its route printed) and the planar
       kernels' launches in self-play; the phase split;
@@ -191,7 +192,7 @@ In order, it:
       to 1), the shares of lanes whose root visits and whole trees equal
       the CPU's, and the latter's root values within GUMBEL_NET_VALUE_ATOL;
    b. Gumbel self-play, the driver on the staged route: cartpole 4,096
-      lanes x 16 sims (m 16), 2 timed chunks of 8 moves; connect4's shipped
+      lanes x 16 sims (m 16), 1 timed chunk of 8 moves; connect4's shipped
       net, 64 lanes x 200 sims, 1 timed chunk of GUMBEL_C4_CHUNK_MOVES
       (depth cuts); ms a move, env-steps/s, one move profiled for its
       device launches per simulation, and no launch of the port's kernels;
@@ -204,7 +205,7 @@ In order, it:
       within RING_ULPS), one make_device_train call at M = 8 from the
       shipped cartpole checkpoint and its Adam state (LEARN_F32), with no
       batch copied from the host;
-   e. MuZero("cartpole", {"training_steps": 400, "device_replay":
+   e. MuZero("cartpole", {"training_steps": 200, "device_replay":
       True}).train() beside 13a's host-replay run: train steps/s, the phase
       split, the device rounds and single host steps, host-to-card batch
       copies in the rounds (must be 0), reanalyse sweeps mirrored into the
@@ -216,7 +217,7 @@ In order, it:
       16 lanes x 50 simulations, chunks of 8 moves) on a seeded stand-in
       with (1, 1, 8) observations and 4 actions, host_pipeline off and on:
       the first move's every planar descent and backprop launch held
-      against its plain version, then 2 timed chunks (ms a move,
+      against its plain version, then 1 timed chunk (ms a move,
       env-steps/s, launches: one per simulation of each dispatch) and one
       move profiled (launches per simulation, the card's busy share);
    b. MuZero("lunarlander", {"training_steps": 16}).train() with make_env
@@ -258,7 +259,16 @@ In order, it:
       MuZero("cartpole", {"training_steps": 50}, distributed={...,
       "backend": "gloo"}).train(): weights equal at the end, rank 0 alone
       writing files;
-18. prints one {"kernels": [...]} JSON line (the fused search's entry with
+18. the port's tools (muzero_general_tpu_torch/tools/), in process at
+   reduced sizes: gpu_parity (the fused, staged and stream kernels against
+   the plain-op route; it must exit 0), resnet_profile at connect4 64 x 50
+   (kernel 6 checked against descend_plain on a plain-op search's end-state
+   tree, then timed), hidden_store_bench at [201, 256, 2688] (the three
+   final stores bit-equal, kernel 7 launched 800 times), trace_search (a
+   connect4 64 x 50 move on the kernel route, 50 launches of each tree
+   kernel, and on the plain-op route, none) and trace_train (cartpole's
+   learner, batch 128, fused 2);
+19. prints one {"kernels": [...]} JSON line (the fused search's entry with
    its train() and test() launches and 15e's under
    "cartpole_device_replay_train_launches" and 16e's under
    "hyperparameter_search_launches", the planar kernels' with connect4's
@@ -266,7 +276,9 @@ In order, it:
    "<game>_selfplay_launches", "<game>_train_launches" and
    "<game>_test_launches", phase 16's under "<game>_host_*_launches" and
    phase 17's per rank under "<kernel>_mesh_launches" and
-   "mcts_fused_search_mesh_train_launches"), then ends with {"ok": true,
+   "mcts_fused_search_mesh_train_launches", and phase 18's by tool under
+   "<kernel>_tool_launches", kernel 6's "descend_node_major_tool_launches"),
+   then ends with {"ok": true,
    "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA card is present or any
@@ -281,6 +293,9 @@ import sys
 import time
 
 import torch
+
+from muzero_general_tpu_torch.tools.profiling import device_trace
+from muzero_general_tpu_torch.tools.profiling import launch_counts as kernel_counts
 
 REPO = pathlib.Path(__file__).resolve().parent
 CART_CHECKPOINT = REPO / "pretrained" / "cartpole" / "model.checkpoint"
@@ -960,34 +975,6 @@ def whole_search_check(driver, folded, game="connect4"):
     return k, legal
 
 
-def device_trace(fn):
-    """fn() once under torch.profiler (device activity only: the host ops'
-    events are not needed for the busy share and would double the trace the
-    profiler parses on exit). Returns the device kernels as (device us,
-    name, launches) rows, the profiled wall ms, and when the parse began."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    t_parse = time.perf_counter()
-    # Device time by kernel name, summed over the trace's raw events: the
-    # same sums as key_averages(), whose event objects take tens of seconds
-    # to build for the ~139,000 kernels of a gomoku move.
-    totals = {}
-    for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() != DeviceType.CUDA:
-            continue  # runtime calls on the host
-        total = totals.setdefault(evt.name(), [0.0, 0])
-        total[0] += evt.duration_ns() / 1e3
-        total[1] += 1
-    return [(dev_us, key, count) for key, (dev_us, count) in totals.items()], wall_ms, t_parse
-
-
 def profile_move(driver, move_ms, means=()):
     """One move under torch.profiler: the device time of its kernels, their
     launches per simulation, the card's busy share of an unprofiled move
@@ -1327,7 +1314,8 @@ def connect4_multileaf_path():
     spec = driver.spec
     if driver.use_fused or not spec.use_kernels or spec.batch_leaves != 8 or not driver.fold_bn:
         fail("connect4 K=8: the driver did not route to the marking kernels")
-    K, reps, S, L = cfg.selfplay_chunk_moves, 3, cfg.num_simulations, spec.batch_leaves
+    # one timed chunk (3 before phase 18)
+    K, reps, S, L = cfg.selfplay_chunk_moves, 1, cfg.num_simulations, spec.batch_leaves
     inferences = []
     recurrent_inference = ResMuZero.recurrent_inference
 
@@ -1748,7 +1736,7 @@ def gomoku_path():
     spec = driver.spec
     if driver.use_fused or spec.use_kernels or not spec.use_stream or not driver.fold_bn:
         fail("gomoku: the driver did not route to the stream kernels with the BN folded")
-    K, reps, S = cfg.selfplay_chunk_moves, 2, cfg.num_simulations
+    K, reps, S = cfg.selfplay_chunk_moves, 1, cfg.num_simulations  # 2 before phase 18
     mcts_stream.descend_stream.launches = 0
     mcts_stream.update_edges.launches = 0
     chunk_s, loop_ms, stats, records = timed_play(driver, reps)
@@ -2123,30 +2111,34 @@ def bf16_lanes():
 
     d, b = mcts_kernels.descend_planar, mcts_kernels.backprop
 
-    def connect4_config(leaves, acts):
+    def connect4_config(leaves, acts, moves):
         cfg = connect4.MuZeroConfig()
-        cfg.parallel_games, cfg.selfplay_chunk_moves = 256, 8
+        cfg.parallel_games, cfg.selfplay_chunk_moves = 256, moves
         cfg.compute_dtype, cfg.search_bf16_activations = "bfloat16", acts
         cfg.search_batch_leaves = leaves
         return cfg
 
-    cfg = connect4_config(1, False)
+    # K = 1: chunks of 4 moves, a warm-up and one timed (the timed moves cut
+    # from 16 in 2 chunks of 8, to make room for phase 18).
+    cfg = connect4_config(1, False, 4)
     net = load_pretrained(MuZeroNetwork(cfg), C4_CHECKPOINT)
     _, folded = bf16_lane("connect4 bf16", connect4, cfg, net,
-                          [(d, "launches"), (b, "launches")], reps=2)
+                          [(d, "launches"), (b, "launches")], reps=1)
     quality_gate(cfg, folded, connect4.make_env())
 
-    cfg = connect4_config(8, True)
+    cfg = connect4_config(8, True, 8)
     net = load_pretrained(MuZeroNetwork(cfg), C4_CHECKPOINT)
     d.launches = b.launches = 0
     driver, folded = bf16_lane("connect4 bf16 K=8", connect4, cfg, net,
-                               [(d, "marked_launches"), (b, "pre_marked_launches")])
+                               [(d, "marked_launches"), (b, "pre_marked_launches")],
+                               reps=1)  # 3 timed chunks before phase 18
     if d.launches != d.marked_launches or b.launches != b.pre_marked_launches:
         fail("connect4 bf16 K=8: unmarked tree kernels launched")
     whole_search_check(driver, folded, "connect4 bf16 K=8")
 
+    # gomoku: chunks of 1 move (2 before phase 18), a warm-up and one timed.
     cfg = gomoku.MuZeroConfig()
-    cfg.parallel_games, cfg.selfplay_chunk_moves = 64, 2
+    cfg.parallel_games, cfg.selfplay_chunk_moves = 64, 1
     cfg.compute_dtype = "bfloat16"
     net = MuZeroNetwork(cfg, seed=0)
     bf16_lane("gomoku bf16", gomoku, cfg, net,
@@ -2366,7 +2358,7 @@ def cartpole_learner(buf):
 
     # ---- 12b. the rate, with the host's batch assembly timed apart ---------
     t0 = time.perf_counter()
-    calls = [stacked_batches(buf, M) for _ in range(13)]
+    calls = [stacked_batches(buf, M) for _ in range(5)]  # 4 timed (12 before phase 18)
     assemble_ms = (time.perf_counter() - t0) * 1e3 / len(calls)
     log(f"[cartpole learner] host batch assembly: {assemble_ms:.3f} ms per {M} batches "
         f"(get_batch on the C++ assembler and np.stack; {cfg.batch_size} x "
@@ -2482,7 +2474,7 @@ def connect4_learner(buf):
         card, cpu = learner_pair(cfg, C4_CHECKPOINT)
         p_cpu = compare_learners(label, card, cpu, stacked, **tol, share=0.99, gap_ref=ref)
         ref = p_cpu if ref is None else ref
-        calls = [stacked_batches(buf, 2) for _ in range(2)]
+        calls = [stacked_batches(buf, 2)]  # one timed call (2 before phase 18)
         rates[dtype], _ = learner_rate(card, calls, label, 2)
     return rates
 
@@ -2685,6 +2677,11 @@ def test_checked(mz, num_tests, check_first=6, **kwargs):
     return result, checked.launches()["mcts_fused_search"], checked.errors["mcts_fused_search"]
 
 
+# Phases 13a and 15e: cartpole's train() steps, with host replay and with
+# device replay (400 before phase 18; a depth cut that makes its room).
+CART_TRAIN_STEPS = 200
+
+
 def orchestration_phase(kernels):
     """Phase 13: the user's entry points on the card. Adds the train and
     test launches to the kernels' entries."""
@@ -2701,7 +2698,8 @@ def orchestration_phase(kernels):
     fused_entry = next(k for k in kernels if k["name"] == "mcts_fused_search")
 
     # ---- 13a. cartpole train() at full width, then test() at G = 1 --------
-    mz = MuZero("cartpole", {"training_steps": 400, "results_path": str(root / "cartpole")})
+    mz = MuZero("cartpole", {"training_steps": CART_TRAIN_STEPS,
+                             "results_path": str(root / "cartpole")})
     cfg = mz.config
     width = (cfg.parallel_games, cfg.num_simulations, cfg.batch_size, cfg.num_unroll_steps,
              cfg.fused_train_steps)
@@ -2711,14 +2709,15 @@ def orchestration_phase(kernels):
     ck, train_s = timed_train(mz)
     launches = mcts_fused.search.launches
     lines = metrics_lines(cfg.results_path)
-    if ck["training_step"] != 400 or launches == 0 or not lines:
+    if ck["training_step"] != CART_TRAIN_STEPS or launches == 0 or not lines:
         fail(f"13a: train() ended at step {ck['training_step']} with {launches} fused-search "
              f"launches and {len(lines)} logged loops")
     if not all(np.isfinite(ck[k]) for k in ("total_loss", "value_loss", "policy_loss")):
         fail("13a: non-finite losses")
     fused_entry["train_launches"] = launches
-    log(f"[muzero cartpole] train() 400 steps in {train_s:.2f} s ({len(lines)} loops): "
-        f"{400 / train_s:.3f} train steps/s, {ck['num_played_steps'] / train_s:.1f} env-steps/s "
+    log(f"[muzero cartpole] train() {CART_TRAIN_STEPS} steps in {train_s:.2f} s ({len(lines)} "
+        f"loops): {CART_TRAIN_STEPS / train_s:.3f} train steps/s, "
+        f"{ck['num_played_steps'] / train_s:.1f} env-steps/s "
         f"({ck['num_played_games']} games, {ck['num_played_steps']} steps saved), "
         f"{ck['num_reanalysed_games']} games reanalysed; fused-search launches {launches}; "
         f"last greedy reward {ck['total_reward']:.1f}, best logged "
@@ -2735,19 +2734,22 @@ def orchestration_phase(kernels):
         f"search_plain (max |dvalue| {max(checks)!r})")
 
     # ---- 13b. load_model of 13a's files, 8 more steps ----------------------
-    mz2 = MuZero("cartpole", {"training_steps": 408, "results_path": str(root / "resumed")})
+    mz2 = MuZero("cartpole", {"training_steps": CART_TRAIN_STEPS + 8,
+                              "results_path": str(root / "resumed")})
     mz2.load_model(checkpoint_path=cfg.results_path / "model.checkpoint",
                    replay_buffer_path=cfg.results_path / "replay_buffer.pkl")
     learner = mz2._restore_state()
     loaded = params_to_jax(learner.network)
     mine, last = dict(_flax_leaves(loaded)), dict(_flax_leaves(ck["weights"]))
     same = mine.keys() == last.keys() and all(np.array_equal(mine[k], last[k]) for k in mine)
-    if learner.training_step != 400 or not same:
+    if learner.training_step != CART_TRAIN_STEPS or not same:
         fail(f"13b: load_model restored step {learner.training_step}, weights bit-equal {same}")
     ck2, resume_s = timed_train(mz2)
-    if ck2["training_step"] != 408 or ck2["num_played_games"] < ck["num_played_games"]:
+    if (ck2["training_step"] != CART_TRAIN_STEPS + 8
+            or ck2["num_played_games"] < ck["num_played_games"]):
         fail(f"13b: the resumed run ended at step {ck2['training_step']}")
-    log(f"[muzero cartpole] load_model + 8 steps: resumed at 400 with 13a's weights bit for bit, "
+    log(f"[muzero cartpole] load_model + 8 steps: resumed at {CART_TRAIN_STEPS} with 13a's "
+        f"weights bit for bit, "
         f"ended at {ck2['training_step']} in {resume_s:.2f} s; played games "
         f"{ck['num_played_games']} -> {ck2['num_played_games']}")
 
@@ -3110,9 +3112,9 @@ GUMBEL_NET_VALUE_ATOL = 1e-2
 # route, host-bound, so a warm-up and one timed chunk of one move keep the
 # phase near its time).
 GUMBEL_C4_CHUNK_MOVES = 1
-# Phase 15c's Gumbel train() steps: 100 (a depth cut from 200, which keeps
-# the whole script inside its time limit on a slower host).
-GUMBEL_TRAIN_STEPS = 100
+# Phase 15c's Gumbel train() steps: 50 (a depth cut from 200, then 100,
+# which keeps the whole script inside its time limit on a slower host).
+GUMBEL_TRAIN_STEPS = 50
 
 
 def table_net(tables, A, device):
@@ -3211,18 +3213,6 @@ def gumbel_card_vs_cpu(label, card_fns, cpu_fns, obs, legal, to_play, spec, gumb
     return card, tree_share
 
 
-def kernel_counts():
-    from muzero_general_tpu_torch.ops import hidden_store, mcts_fused, mcts_kernels, mcts_stream
-
-    return {"mcts_fused_search": mcts_fused.search.launches,
-            "descend_planar": mcts_kernels.descend_planar.launches,
-            "descend": mcts_kernels.descend.launches,
-            "backprop": mcts_kernels.backprop.launches,
-            "descend_stream": mcts_stream.descend_stream.launches,
-            "update_edges": mcts_stream.update_edges.launches,
-            "write_node_hidden": hidden_store.write_node_hidden.launches}
-
-
 def gumbel_selfplay(label, module, cfg, net, reps):
     """One chunk and `reps` timed ones of the Gumbel driver (timed_play),
     then one move profiled for its device launches; fail if any of the
@@ -3313,7 +3303,7 @@ def gumbel_phase():
     # ---- 15b. Gumbel self-play at the shipped widths --------------------------
     cfg, net = shipped["cartpole"]
     cfg.parallel_games = 4096
-    gumbel_selfplay("cartpole", cartpole, cfg, net, reps=2)
+    gumbel_selfplay("cartpole", cartpole, cfg, net, reps=1)  # 2 timed chunks before phase 18
     cfg, net = shipped["connect4"]
     cfg.parallel_games, cfg.selfplay_chunk_moves = 64, GUMBEL_C4_CHUNK_MOVES
     gumbel_selfplay("connect4", connect4, cfg, net, reps=1)
@@ -3513,7 +3503,7 @@ def device_replay_phase(cart_replay, c4_replay, kernels, host_train_s):
 
     root = REPO / "results" / "chip_smoke" / "device_replay"
     shutil.rmtree(root, ignore_errors=True)
-    mz = MuZero("cartpole", {"training_steps": 400, "device_replay": True,
+    mz = MuZero("cartpole", {"training_steps": CART_TRAIN_STEPS, "device_replay": True,
                              "results_path": str(root)})
     if int(mz.config.fused_train_steps) != 8 or mz.config.parallel_games != 16:
         fail("15e: not cartpole's shipped config")
@@ -3563,13 +3553,13 @@ def device_replay_phase(cart_replay, c4_replay, kernels, host_train_s):
         muzero_lib.MuZero._reanalyse_sweep = sweep
     launches = mcts_fused.search.launches
     ring = mz.device_ring
-    if (ck["training_step"] != 400 or ring is None or not counts["rounds"] or launches == 0
-            or counts["round_copies"]):
+    if (ck["training_step"] != CART_TRAIN_STEPS or ring is None or not counts["rounds"]
+            or launches == 0 or counts["round_copies"]):
         fail(f"15e: train() ended at {ck['training_step']}, ring {ring is not None}, counts "
              f"{counts}, fused-search launches {launches}")
-    if counts["rounds"] * 8 + counts["single"] != 400:
+    if counts["rounds"] * 8 + counts["single"] != CART_TRAIN_STEPS:
         fail(f"15e: {counts['rounds']} device rounds and {counts['single']} host steps for "
-             f"400 steps")
+             f"{CART_TRAIN_STEPS} steps")
     state = ring.state
     if int(state.num_played_games) != ck["num_played_games"]:
         fail(f"15e: the ring holds {int(state.num_played_games)} games, the host buffer "
@@ -3581,9 +3571,10 @@ def device_replay_phase(cart_replay, c4_replay, kernels, host_train_s):
     next(k for k in kernels if k["name"] == "mcts_fused_search")[
         "cartpole_device_replay_train_launches"] = launches
     pt = mz.phase_time
-    log(f"[muzero cartpole device replay] train() 400 steps, device_replay on (16 lanes x 50 "
-        f"sims, batch 128, unroll 10, M = 8) in {train_s:.2f} s: {400 / train_s:.3f} train "
-        f"steps/s (13a's host replay in this run: {400 / host_train_s:.3f}), "
+    log(f"[muzero cartpole device replay] train() {CART_TRAIN_STEPS} steps, device_replay on "
+        f"(16 lanes x 50 sims, batch 128, unroll 10, M = 8) in {train_s:.2f} s: "
+        f"{CART_TRAIN_STEPS / train_s:.3f} train "
+        f"steps/s (13a's host replay in this run: {CART_TRAIN_STEPS / host_train_s:.3f}), "
         f"{ck['num_played_steps'] / train_s:.1f} env-steps/s; {counts['rounds']} device rounds "
         f"of 8 steps, {counts['single']} single host steps (the remainders below M, as in "
         f"JAX); host-to-card batch copies in the device rounds: {counts['round_copies']}; "
@@ -3607,8 +3598,8 @@ ATARI_LANES = 350
 # The stand-in lander's episodes end after this many moves, so that 16b's
 # train() completes games within its first chunks and its two test() games,
 # B = 1 searches on the plain-op route (~14 ms a simulation, host-bound),
-# end within ~15 s each.
-LANDER_EPISODE = 20
+# end within ~10 s each (20 moves before phase 18, a depth cut).
+LANDER_EPISODE = 10
 
 
 def host_stand_ins():
@@ -3814,10 +3805,11 @@ def host_path_phase(kernels):
         if not driver.spec.use_kernels or driver.search_batch != (8 if pipelined else 16):
             fail(f"16a {mode}: kernels {driver.spec.use_kernels}, batch {driver.search_batch}")
         first, _ = checked_moves(f"lunarlander host {mode}", driver, 1)
-        chunk_s, stats, launched = timed_chunks(driver, 2)
+        reps = 1  # timed chunks (2 before phase 18)
+        chunk_s, stats, launched = timed_chunks(driver, reps)
         dispatches = 2 if pipelined else 1
-        if any(n != 2 * K * dispatches * S for n in launched.values()):
-            fail(f"16a {mode}: launches {launched} over {2 * K} moves")
+        if any(n != reps * K * dispatches * S for n in launched.values()):
+            fail(f"16a {mode}: launches {launched} over {reps * K} moves")
         add_launches(f"lunarlander_host_{mode}_launches",
                      {n: first[n] + launched[n] for n in tree_kernels})
         move_ms = chunk_s * 1e3 / K
@@ -3825,8 +3817,8 @@ def host_path_phase(kernels):
         log(f"[lunarlander host {mode}] HostSelfPlayDriver.play, shipped width (FC, encoding "
             f"10, 64-wide, support 10), {G} lanes x {S} sims, {K} moves a chunk, stand-in env: "
             f"{chunk_s * 1e3:.2f} ms/chunk, {move_ms:.3f} ms/move, {rates[mode]:.1f} "
-            f"env-steps/s; launches {launched} over {2 * K} moves "
-            f"({launched['descend_planar'] / (2 * K * dispatches):.1f} a dispatch)")
+            f"env-steps/s; launches {launched} over {reps * K} moves "
+            f"({launched['descend_planar'] / (reps * K * dispatches):.1f} a dispatch)")
         host_profile(f"lunarlander host {mode}", driver, move_ms, dispatches)
     log(f"[lunarlander host] env-steps/s pipelined {rates['pipelined']:.1f} against serial "
         f"{rates['serial']:.1f} ({rates['pipelined'] / rates['serial']:.3f}x)")
@@ -4262,7 +4254,7 @@ def mesh_rank():
         out["steps"][key] = (label, mesh_step_case(label, cfg, shape, checkpoint, rule, seed=17,
                                                    timed=key != "b seed 0"))
     out["cartpole"] = mesh_selfplay("cartpole", cartpole, 2048, 50, CART_CHECKPOINT, 8)
-    out["connect4"] = mesh_selfplay("connect4", connect4, 128, 200, C4_CHECKPOINT, 2)
+    out["connect4"] = mesh_selfplay("connect4", connect4, 128, 200, C4_CHECKPOINT, 1)
     return out
 
 
@@ -4373,6 +4365,92 @@ def mesh_phase(kernels):
     return seconds
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 18: the port's tools (muzero_general_tpu_torch/tools/), in process
+# ---------------------------------------------------------------------------
+
+# The kernels line's key for a tool's launches of each kernel
+TOOL_LAUNCH_KEYS = {"descend": "descend_node_major_tool_launches"}
+
+
+def tools_phase(kernels):
+    """Phase 18: gpu_parity, resnet_profile (connect4 64 x 50), hidden_store_bench
+    (its shipped size), trace_search (a connect4 64 x 50 move on the kernel
+    and on the plain-op route) and trace_train (cartpole, fused 2) through
+    their entry points. Adds each tool's launches of each kernel to the
+    kernel's entry under "<kernel>_tool_launches" (kernel 6's under
+    "descend_node_major_tool_launches")."""
+    import numpy as np
+
+    from muzero_general_tpu_torch.tools import (gpu_parity, hidden_store_bench, profiling,
+                                                resnet_profile, trace_search, trace_train)
+
+    t_phase = time.perf_counter()
+    entries = {k["name"]: k for k in kernels}
+    by_kernel = {}
+
+    def count(tool, launches):
+        for name, n in launches.items():
+            by_kernel.setdefault(name, {})[tool] = n
+
+    def tagged(tag):
+        return lambda msg: log(f"[{tag}] {msg}")
+
+    # ---- 18a. gpu_parity: the kernels against the plain-op route ---------------
+    before = profiling.launch_counts()
+    lines = []
+    rc = gpu_parity.main([], print_fn=lines.append)
+    for line in lines:
+        log(f"[tools gpu_parity] {line}")
+    if rc != 0:
+        fail(f"18a: gpu_parity exited {rc}")
+    count("gpu_parity", profiling.launches_since(before))
+
+    # ---- 18b. resnet_profile at connect4 64 x 50, kernel 6 checked --------------
+    t0 = time.perf_counter()
+    result = resnet_profile.run(resnet_profile.parse_args(["--games", "64", "--sims", "50"]),
+                                log=tagged("tools resnet_profile"))
+    if not result.get("descend_kernel_checked") or not result["launches"].get("descend"):
+        fail(f"18b: resnet_profile's node-major descent: {result}")
+    count("resnet_profile", result["launches"])
+    log(f"[tools resnet_profile] {json.dumps(result)} ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 18c. hidden_store_bench: three stores bit-equal ----------------------
+    result = hidden_store_bench.run(hidden_store_bench.parse_args([]),
+                                    print_fn=tagged("tools hidden_store_bench"))
+    want = (1 + hidden_store_bench.REPS) * 200
+    if not result["stores_equal"] or result["launches"] != want:
+        fail(f"18c: hidden_store_bench stores equal {result['stores_equal']}, "
+             f"{result['launches']} row-write launches (want {want})")
+    count("hidden_store_bench", {"write_node_hidden": result["launches"]})
+
+    # ---- 18d. trace_search: one connect4 move on each route ---------------------
+    for pallas in ("1", "0"):
+        tag = f"tools trace_search pallas={pallas}"
+        result = trace_search.run(trace_search.parse_args(
+            ["--games", "64", "--sims", "50", "--pallas", pallas, "--top", "8"]),
+            print_fn=tagged(tag))
+        want = {"descend_planar": 50, "backprop": 50} if pallas == "1" else {}
+        if result["launches"] != want:
+            fail(f"18d: trace_search (pallas={pallas}) launched {result['launches']}, want {want}")
+        count(f"trace_search_pallas{pallas}", result["launches"])
+
+    # ---- 18e. trace_train: cartpole's learner, fused 2 -------------------------
+    result = trace_train.run(trace_train.parse_args(
+        ["--game", "cartpole", "--batch", "128", "--fused", "2", "--top", "8"]),
+        print_fn=tagged("tools trace_train"))
+    if not np.isfinite(result["loss"]):
+        fail(f"18e: trace_train's loss {result['loss']}")
+
+    for name, tools in by_kernel.items():
+        entries[name][TOOL_LAUNCH_KEYS.get(name, f"{name}_tool_launches")] = tools
+    seconds = time.perf_counter() - t_phase
+    log(f"[tools] launches by kernel and tool: {json.dumps(by_kernel)}")
+    log(f"[done] phase 18 in {seconds:.1f} s")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4421,6 +4499,8 @@ def main():
     host_path_phase(kernels)
     log(f"[done] host path after {time.perf_counter() - t_start:.1f} s")
     mesh_phase(kernels)
+    log(f"[done] mesh after {time.perf_counter() - t_start:.1f} s")
+    tools_phase(kernels)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
