@@ -28,6 +28,7 @@ pyramid's pools and convs are plain PyTorch ops under FullPrecision, as the
 JAX package computes them in XLA, not in a Pallas kernel.
 """
 
+import itertools
 import math
 from typing import Sequence
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from muzero_general_tpu_torch import tracing
 from muzero_general_tpu_torch.models.common import (
     FullPrecision,
     MLP,
@@ -290,6 +292,9 @@ class ResMuZero(nn.Module):
         """An untrained fold_bn=True module of the same shape, compute dtype
         and device, with activations in `act_dtype`."""
         twin = ResMuZero(**self.hparams, fold_bn=True, act_dtype=act_dtype)
+        # Built on the host: a copy to the device a tensor (a host sync each).
+        tensors = itertools.chain(twin.parameters(), twin.buffers())
+        tracing.count("host_sync", sum(t.numel() > 0 for t in tensors), site="selfplay.fold")
         return twin.to(next(self.parameters()).device).eval()
 
     def representation(self, observation):

@@ -62,6 +62,7 @@ import torch
 
 from muzero_general_tpu_torch import checkpoint as ckpt_lib
 from muzero_general_tpu_torch import config as config_lib
+from muzero_general_tpu_torch import tracing
 from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.hostplay import HostSelfPlayDriver
 from muzero_general_tpu_torch.logger import MetricsLogger
@@ -562,9 +563,11 @@ class MuZero:
         # requests a graceful exit with a final checkpoint.
         stop_file = cfg.results_path / "STOP"
         t_start = time.time()
-        phase_time = {"selfplay": 0.0, "test": 0.0, "train": 0.0,
-                      "reanalyse": 0.0, "batch": 0.0, "checkpoint": 0.0}
-        self.phase_time = phase_time
+        # The loop's phases, timed always as `loop.*` spans; phase_time holds
+        # their totals in seconds.
+        phases = tracing.Phases("loop.", ("selfplay", "test", "train", "reanalyse", "batch",
+                                          "checkpoint"))
+        self.phase_time = phase_time = phases.seconds
         loop_counter = 0
         # The checkpoint is synced at most once a loop, whenever
         # checkpoint_interval steps have passed since the last sync.
@@ -594,16 +597,16 @@ class MuZero:
                 temperature = cfg.visit_softmax_temperature_fn(training_step)
 
                 # ---- self-play chunk (all G lanes advance K moves) -------
-                t0 = time.time()
+                t0 = time.time_ns()
                 games, stats = driver.play(temperature)
-                phase_time["selfplay"] += time.time() - t0
+                phases.lap("selfplay", t0)
                 for gh in games:
                     replay.save_game(gh)
                 if ring is not None and games:
                     ring.push(games)
 
                 # ---- evaluation (reference test_mode worker) --------------
-                t0 = time.time()
+                t0 = time.time_ns()
                 use_opponent = (
                     len(cfg.players) > 1
                     and cfg.opponent not in (None, "self")
@@ -622,7 +625,7 @@ class MuZero:
                             seed=cfg.seed + cfg.num_workers + loop_counter,
                         )
                     ]
-                phase_time["test"] += time.time() - t0
+                phases.lap("test", t0)
                 for gh in test_games:
                     self.checkpoint["total_reward"] = float(gh.rewards.sum())
                     self.checkpoint["episode_length"] = len(gh)
@@ -656,13 +659,12 @@ class MuZero:
                 target = min(cfg.training_steps, int(ratio * played_steps))
                 pending_priorities = []
                 while training_step < target and buffer_ready:
-                    t0 = time.time()
+                    t0 = time.time_ns()
                     prev_step = training_step
                     if ring is not None and target - training_step >= M > 1:
                         # Device replay: sampling, M steps and the
                         # write-backs on the card, no host batches.
-                        phase_time["batch"] += time.time() - t0
-                        t0 = time.time()
+                        t0 = phases.lap("batch", t0)
                         metrics = ring.train_round()
                         training_step += M
                     elif target - training_step >= M > 1:
@@ -675,8 +677,7 @@ class MuZero:
                                        for k in parts[0][1]}
                         if spawned:
                             batches = rank_rows(batches, 1)
-                        phase_time["batch"] += time.time() - t0
-                        t0 = time.time()
+                        t0 = phases.lap("batch", t0)
                         metrics, priorities_m = learner.train_steps(batches)
                         training_step += M
                         if cfg.PER:
@@ -687,16 +688,14 @@ class MuZero:
                             index_batch, batch = next_batches(1)[0]
                         if spawned:
                             batch = rank_rows(batch, 0)
-                        phase_time["batch"] += time.time() - t0
-                        t0 = time.time()
+                        t0 = phases.lap("batch", t0)
                         metrics, priorities = learner.train_step(batch)
                         training_step += 1
                         if cfg.PER:
                             pending_priorities.append((priorities[None], [index_batch]))
                     if cfg.PER and len(pending_priorities) >= 4:
                         self._write_priorities(replay, pending_priorities, spawned, train_mesh)
-                    phase_time["train"] += time.time() - t0
-                    t0 = time.time()
+                    t0 = phases.lap("train", t0)
                     if (
                         cfg.use_last_model_value
                         and (training_step // cfg.reanalyse_interval)
@@ -710,13 +709,13 @@ class MuZero:
                                 replay, learner.network,
                                 on_update=ring.on_reanalysed if ring is not None else None)
                         self.checkpoint["num_reanalysed_games"] += n
-                    phase_time["reanalyse"] += time.time() - t0
+                    phases.lap("reanalyse", t0)
                     last_metrics = metrics
                 if cfg.PER:
                     self._write_priorities(replay, pending_priorities, spawned, train_mesh)
 
                 # ---- checkpoint sync (once per loop at most) --------------
-                t0 = time.time()
+                t0 = time.time_ns()
                 if last_metrics is not None and (
                     training_step // cfg.checkpoint_interval
                 ) > (last_ckpt_step // cfg.checkpoint_interval):
@@ -737,15 +736,14 @@ class MuZero:
                                 cfg.results_path / f"model_{step_tag:06d}.checkpoint",
                             )
                     last_ckpt_step = training_step
-                phase_time["checkpoint"] += time.time() - t0
+                phases.lap("checkpoint", t0)
 
                 self.checkpoint["training_step"] = training_step
                 self.checkpoint["num_played_games"] = int(played_games)
                 self.checkpoint["num_played_steps"] = int(played_steps)
                 if logger:
                     logger.log(self.checkpoint)
-                    if loop_counter % 20 == 0:
-                        logger.write({"phase_time_s": phase_time})
+                    logger.write({"phase_time_s": phase_time})
                 dt = max(1e-9, time.time() - t_start)
                 # "Last test reward" is the last completed eval episode; the
                 # open eval episode's running reward is shown beside it.
@@ -781,6 +779,7 @@ class MuZero:
                 replay, self.checkpoint, cfg.results_path / "replay_buffer.pkl"
             )
         if logger:
+            logger.write({"phase_time_s": phase_time})
             logger.close()
         if is_main:
             print()
@@ -906,10 +905,13 @@ def _start_profile(device):
 
 
 def _stop_profile(profiler, profile_dir):
+    """Stop the trace and write it, with the program's spans of its window
+    (tracing.py) on a row of their own."""
     profiler.stop()
     profile_dir = pathlib.Path(profile_dir)
     profile_dir.mkdir(parents=True, exist_ok=True)
     profiler.export_chrome_trace(str(profile_dir / "trace.json"))
+    tracing.add_to_chrome_trace(profile_dir / "trace.json", tracing.take().spans)
 
 
 def hyperparameter_search(game_name, parametrization, budget, parallel_experiments,

@@ -54,6 +54,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from muzero_general_tpu_torch import tracing
 from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.ops import mcts_kernels
 from muzero_general_tpu_torch.ops.philox import TIE_JITTER
@@ -226,6 +227,7 @@ def sample_gamma(alpha: float, shape, generator: Optional[torch.Generator] = Non
         take = pending & accept
         out = torch.where(take, d * v, out)
         pending = pending & ~accept
+        tracing.count("host_sync", site="search.noise")
         if not bool(pending.any()):
             break
     if boost:
@@ -442,6 +444,7 @@ def _select_leaf(tree: Tree, generator, spec: SearchSpec, depth_bound, sim: int,
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     parent = torch.zeros_like(current)
     action = torch.zeros_like(current)
+    tracing.count("host_sync", site="search.select")
     for _ in range(min(int(depth_bound), spec.max_depth)):
         scores, cvis, cvsum, crew = _ucb_scores(tree, current, spec)
         if spec.deterministic_tie_break:
@@ -480,20 +483,28 @@ def _expand_and_backprop(tree: Tree, hidden, sim: int, spec: SearchSpec,
     parent, action = s.parent.long(), s.action.long()
 
     # ---- Expansion: one batched recurrent inference ----------------------
+    t = tracing.begin()
+    parent_hidden = hidden[parent, b_idx]
+    t = tracing.end(t, "search.gather")
     value_logits, reward_logits, policy_logits, hidden_leaf = recurrent_fn(
-        hidden[parent, b_idx], action
+        parent_hidden, action
     )
+    t = tracing.end(t, "search.network")
     leaf_value = support_to_scalar(value_logits, spec.support_size).contiguous()
     leaf_reward = support_to_scalar(reward_logits, spec.support_size)
     # Interior nodes expand over the FULL action space (self_play.py:345-351).
     prior_leaf = torch.softmax(policy_logits, dim=-1)
+    t = tracing.end(t, "search.decode")
     hidden[new_node] = hidden_leaf
+    # The index write's Python int goes to the device with a host sync.
+    tracing.count("host_sync", site="search.expand")
     if spec.use_kernels:
         # Planar slabs: edge (parent, action) at [b, action, parent], node
         # new_node's prior row is column new_node of every action plane.
         tree.children_index[b_idx, action, parent] = new_node
         tree.children_reward[b_idx, action, parent] = leaf_reward
         tree.children_prior[:, :, new_node] = prior_leaf
+        t = tracing.end(t, "search.expand")
         backprop = mcts_kernels.backprop_plain if plain_kernels else mcts_kernels.backprop
         backprop(
             s.path_nodes, s.path_actions, s.leaf_depth, leaf_value,
@@ -502,6 +513,7 @@ def _expand_and_backprop(tree: Tree, hidden, sim: int, spec: SearchSpec,
             tree.min_value, tree.max_value,
             num_players=spec.num_players, discount=spec.discount, planar=True,
         )
+        tracing.end(t, "search.backprop")
         return s.leaf_depth
 
     tree.children_index[b_idx, parent, action] = new_node
@@ -512,8 +524,10 @@ def _expand_and_backprop(tree: Tree, hidden, sim: int, spec: SearchSpec,
         # The leaf edge's reward was 0 at descent time (unexpanded): patch
         # the decoded one in, as a post-expansion gather would read it.
         path_stats[b_idx, s.leaf_depth.long() - 1, 0] = leaf_reward
+    t = tracing.end(t, "search.expand")
     _backprop_vectorized(tree, s.path_nodes, s.path_actions, s.leaf_depth,
                          leaf_value, spec, path_stats=path_stats)
+    tracing.end(t, "search.backprop")
     return s.leaf_depth
 
 
@@ -725,6 +739,7 @@ def _run_rounds_multileaf(tree: Tree, hidden, spec: SearchSpec, recurrent_fn, st
     max_depth = torch.zeros((B,), dtype=torch.int32, device=dev)
     backprop = mcts_kernels.backprop_plain if plain_kernels else mcts_kernels.backprop
     for r in range(steps // K):
+        t = tracing.begin()
         # A round's selections see no new expansions: one bound serves all K.
         depth_bound = torch.amax(max_depth) + 1
         sels = []
@@ -738,17 +753,21 @@ def _run_rounds_multileaf(tree: Tree, hidden, spec: SearchSpec, recurrent_fn, st
                 s = _select_leaf(tree, generator, spec, depth_bound, sim, seed)
                 _apply_virtual_marks(tree, s.path_nodes, s.path_actions, s.leaf_depth)
             sels.append(s)
+        t = tracing.end(t, "search.select")
         parents = torch.stack([s.parent for s in sels]).long()  # [K, B]
         actions = torch.stack([s.action for s in sels]).long()
         leaf_depth = torch.stack([s.leaf_depth for s in sels])  # [K, B]
 
         # ---- one hidden gather, one recurrent inference -------------------
         ph = hidden[parents, bcol]  # [K, B, ...]
+        t = tracing.end(t, "search.gather")
         value_logits, reward_logits, policy_logits, h2 = recurrent_fn(
             ph.reshape((K * B,) + tuple(ph.shape[2:])), actions.reshape(-1))
+        t = tracing.end(t, "search.network")
         leaf_values = support_to_scalar(value_logits, spec.support_size).reshape(K, B)
         leaf_rewards = support_to_scalar(reward_logits, spec.support_size).reshape(K, B)
         priors = torch.softmax(policy_logits, dim=-1).reshape(K, B, A)
+        t = tracing.end(t, "search.decode")
         new_nodes = r * K + 1 + torch.arange(K, device=dev)
         hidden[new_nodes] = h2.reshape((K, B) + tuple(h2.shape[1:]))
 
@@ -769,6 +788,7 @@ def _run_rounds_multileaf(tree: Tree, hidden, spec: SearchSpec, recurrent_fn, st
             tree.children_prior[:, :, new_nodes] = priors.permute(1, 2, 0)
         else:
             tree.children_prior[:, new_nodes] = priors.permute(1, 0, 2)
+        t = tracing.end(t, "search.expand")
 
         # ---- the backprop of the K paths, visits pre-marked ----------------
         if spec.use_kernels:
@@ -792,6 +812,7 @@ def _run_rounds_multileaf(tree: Tree, hidden, spec: SearchSpec, recurrent_fn, st
                 torch.stack([s.path_actions for s in sels]), leaf_depth, leaf_values, spec,
                 path_stats=ps)
         max_depth = torch.maximum(max_depth, torch.amax(leaf_depth, 0))
+        tracing.end(t, "search.backprop")
     return max_depth
 
 
@@ -813,8 +834,11 @@ def _run_stream(tree: Tree, hidden, max_depth, spec: SearchSpec, recurrent_fn, s
         descend = mcts_stream.descend_stream_plain
     else:
         descend = mcts_stream.descend_stream
+    t = tracing.begin()
     edges = mcts_stream.pack_tree(tree, A)
+    tracing.end(t, "search.root")
     for sim in range(steps):
+        t = tracing.begin()
         depth_bound = torch.amax(max_depth) + 1  # stays on the device
         parent, action, leaf_depth, path_n, path_a, path_stats = descend(
             seed, sim, depth_bound, edges, legal_i32, tree.min_value, tree.max_value,
@@ -822,22 +846,32 @@ def _run_stream(tree: Tree, hidden, max_depth, spec: SearchSpec, recurrent_fn, s
             pb_c_init=spec.pb_c_init, discount=spec.discount, A=A,
             max_depth=spec.max_depth, tie_jitter=spec.tie_jitter,
         )
+        t = tracing.end(t, "search.select")
         new_node = sim + 1
+        parent_hidden = hidden[parent.long(), b_idx]
+        t = tracing.end(t, "search.gather")
         value_logits, reward_logits, policy_logits, hidden_leaf = recurrent_fn(
-            hidden[parent.long(), b_idx], action.long()
+            parent_hidden, action.long()
         )
+        t = tracing.end(t, "search.network")
         leaf_value = support_to_scalar(value_logits, spec.support_size)
         leaf_reward = support_to_scalar(reward_logits, spec.support_size)
+        prior_leaf = torch.softmax(policy_logits, dim=-1)
+        t = tracing.end(t, "search.decode")
         hidden[new_node] = hidden_leaf
-        mcts_stream.expand_packed(edges, parent, action, new_node, leaf_reward,
-                                  torch.softmax(policy_logits, dim=-1), A)
+        mcts_stream.expand_packed(edges, parent, action, new_node, leaf_reward, prior_leaf, A)
         # The leaf edge's reward was 0 at descent time (unexpanded): patch
         # the decoded one in. The path arrays stay depth-major [D, B].
         path_stats[0][leaf_depth.long() - 1, b_idx] = leaf_reward
+        t = tracing.end(t, "search.expand")
         mcts_stream.backprop_stream(tree, edges, path_n, path_a, leaf_depth, leaf_value,
                                     path_stats, spec, plain_kernels=plain_kernels)
         max_depth = torch.maximum(max_depth, leaf_depth)
-    return mcts_stream.unpack_tree(tree, edges, A), max_depth
+        tracing.end(t, "search.backprop")
+    t = tracing.begin()
+    tree = mcts_stream.unpack_tree(tree, edges, A)
+    tracing.end(t, "search.finish")
+    return tree, max_depth
 
 
 def run_mcts(
@@ -873,9 +907,12 @@ def run_mcts(
     N = spec.num_simulations + 1
     dev = legal_mask.device
 
-    value_logits, reward_logits, policy_logits, hidden0 = (
-        root_outputs if root_outputs is not None else initial_fn(observation)
-    )
+    t_root = tracing.begin()
+    if root_outputs is None:
+        t = tracing.begin()
+        root_outputs = initial_fn(observation)
+        tracing.end(t, "search.network")
+    value_logits, reward_logits, policy_logits, hidden0 = root_outputs
     root_predicted_value = support_to_scalar(value_logits, spec.support_size)
     root_reward = support_to_scalar(reward_logits, spec.support_size)
     prior = masked_softmax(policy_logits, legal_mask)
@@ -888,6 +925,7 @@ def run_mcts(
     if spec.use_kernels or spec.use_stream:
         legal_i32 = legal_mask.to(torch.int32).contiguous()
         if seed is None:
+            tracing.count("host_sync", site="search.root")
             seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                      device=dev))
     if spec.use_kernels:
@@ -897,6 +935,7 @@ def run_mcts(
     hidden[0] = hidden0
     max_depth = torch.zeros((B,), dtype=torch.int32, device=dev)
     steps = spec.num_simulations if num_steps is None else num_steps
+    tracing.end(t_root, "search.root")
     if spec.batch_leaves > 1:
         if steps % spec.batch_leaves:
             raise ValueError(f"num_steps={steps} is not a multiple of batch_leaves="
@@ -908,20 +947,24 @@ def run_mcts(
                                       seed, legal_i32, plain_kernels)
     else:
         for sim in range(steps):
+            t = tracing.begin()
             # A descent goes at most one edge below the deepest existing
             # node; the bound stays on the device.
             depth_bound = torch.amax(max_depth) + 1
             s = _select_leaf(tree, generator, spec, depth_bound, sim, seed,
                              legal_i32, plain_kernels)
+            tracing.end(t, "search.select")
             leaf_depth = _expand_and_backprop(tree, hidden, sim, spec, recurrent_fn,
                                               s, plain_kernels)
+            t = tracing.begin()
             # Edges descended including the final one to the new node, as
             # the reference's current_tree_depth (self_play.py:319-355).
             max_depth = torch.maximum(max_depth, leaf_depth)
+            tracing.end(t, "search.backprop")
+    t = tracing.begin()
     if spec.use_kernels:
         tree = _from_planar(tree)
-
-    return MCTSOutput(
+    out = MCTSOutput(
         root_visit_counts=tree.children_visit[:, 0],
         root_value=tree.root_value(),
         root_predicted_value=root_predicted_value,
@@ -929,3 +972,5 @@ def run_mcts(
         tree=tree,
         root_hidden=hidden0,
     )
+    tracing.end(t, "search.finish")
+    return out

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from muzero_general_tpu_torch import tracing
 from muzero_general_tpu_torch.ops.mcts import associative_scan
 from muzero_general_tpu_torch.ops.mcts_kernels import _check, _raise_on, _route
 from muzero_general_tpu_torch.ops.philox import U32_RANGE, jitter_bits
@@ -84,6 +85,8 @@ def expand_packed(edges, parent, action, new_node: int, leaf_reward, prior, A):
     reward, node new_node's row gets the prior."""
     b_idx = torch.arange(edges.shape[0], device=edges.device)
     parent, action = parent.long(), action.long()
+    # The index write's Python float goes to the device with a host sync.
+    tracing.count("host_sync", site="search.expand")
     edges[b_idx, parent, P_CHILD, action] = float(new_node)
     edges[b_idx, parent, P_REWARD, action] = leaf_reward
     edges[:, new_node, P_PRIOR, :A] = prior

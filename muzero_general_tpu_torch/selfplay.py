@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from muzero_general_tpu_torch import tracing
 from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.envs.core import where_state
 from muzero_general_tpu_torch.models import activation_dtype, fold_bn
@@ -232,17 +233,20 @@ class SelfPlayDriver:
         target, action, search output)."""
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self._seed_generator))
         if self.use_fused:
+            t = tracing.begin()
             out = mcts_fused.run_mcts_fused(
                 self.network, stacked, legal, to_play, self.generator,
                 self.fused_spec, add_exploration_noise=add_noise, weights=net,
                 seed=seed,
             )
+            tracing.end(t, "search.fused")
         else:
             out = mcts_ops.run_mcts(
                 net.initial_inference, net.recurrent_inference, stacked, legal,
                 to_play, self.generator, self.spec,
                 add_exploration_noise=add_noise, seed=seed,
             )
+        t = tracing.begin()
         policy_target = mcts_ops.visit_policy(out.root_visit_counts)
         # Per-lane temperature; drops to 0 after temperature_threshold moves
         # (reference self_play.py:151-157).
@@ -251,10 +255,12 @@ class SelfPlayDriver:
         )
         threshold = self.config.temperature_threshold
         if threshold:
+            tracing.count("host_sync", site="search.action")  # the 0.0 copied to the device
             a_cold = mcts_ops.select_action(
                 self.generator, out.root_visit_counts, legal, 0.0
             )
             action = torch.where(carry.move_count < threshold, action, a_cold)
+        tracing.end(t, "search.action")
         return policy_target, action, out
 
     def _one_move(self, carry, temperature, add_noise, net):
@@ -266,10 +272,12 @@ class SelfPlayDriver:
         legal = env.legal_actions_mask(carry.env_state)
         to_play = env.to_play(carry.env_state)
         if self.use_gumbel:
+            t = tracing.begin()
             out = gumbel_ops.run_gumbel_mcts(
                 net.initial_inference, net.recurrent_inference, stacked, legal, to_play,
                 self.generator, self.gumbel_spec, add_gumbel=add_noise,
             )
+            tracing.end(t, "search.gumbel")
             policy_target = out.improved_policy
             # Exploration comes from the root Gumbel draw: lanes play the
             # search's action, or its greedy one past temperature_threshold
@@ -282,6 +290,7 @@ class SelfPlayDriver:
         else:
             policy_target, action, out = self._puct_move(carry, stacked, legal, to_play,
                                                          temperature, add_noise, net)
+        t = tracing.begin()
         states2, reward, done = env.step(carry.env_state, action, self.generator)
         # Enforce max_moves so host episode cuts and env resets stay in
         # lockstep (reference self_play.py:129-131).
@@ -309,32 +318,42 @@ class SelfPlayDriver:
             obs_hist, act_hist, env.observation(states3), done
         )
         move_count = torch.where(done, 0, carry.move_count + 1).to(torch.int32)
+        tracing.end(t, "selfplay.env")
         return SelfPlayCarry(states3, obs_hist, act_hist, move_count), record
 
     @torch.no_grad()
     def play_chunk(self, temperature, num_moves: int, add_noise: bool = True):
         """Advance every lane `num_moves` moves; returns the MoveRecord
         ([K, G] tensors on the device). `temperature`: float or [G]."""
+        t_chunk = tracing.begin()
         if self._carry is None:
             self.reset()
+        if not (isinstance(temperature, torch.Tensor) and temperature.device == self.device):
+            tracing.count("host_sync", site="selfplay.temperature")  # copied to the device
         temperature = torch.as_tensor(temperature, dtype=torch.float32,
                                       device=self.device)
         # The search's weights are prepared once per chunk, like the JAX
         # package's per-chunk fold: packed for the fused kernel, or the
         # ResNet's batch norms folded into its convs.
+        t = tracing.begin()
         if self.use_fused:
             net = mcts_fused.fused_weights(self.network, self.config.encoding_size)
         elif self.fold_bn:
             net = fold_bn(self.network, self.act_dtype)
         else:
             net = self.network
+        tracing.end(t, "selfplay.fold")
         records = []
         carry = self._carry
         for _ in range(num_moves):
+            t = tracing.begin()
             carry, record = self._one_move(carry, temperature, add_noise, net)
+            tracing.end(t, "selfplay.move")
             records.append(record)
         self._carry = carry
-        return MoveRecord(*(torch.stack(field) for field in zip(*records)))
+        out = MoveRecord(*(torch.stack(field) for field in zip(*records)))
+        tracing.end(t_chunk, "selfplay.chunk")
+        return out
 
     def play(self, temperature: float, num_moves: Optional[int] = None,
              add_noise: bool = True):
@@ -355,6 +374,8 @@ class SelfPlayDriver:
         greedy = max(0, self.greedy_lanes - self.lane0)
         temp_vec[:greedy] = 0.0
         rec = self.play_chunk(torch.from_numpy(temp_vec), K, add_noise)
+        t = tracing.begin()
+        tracing.count("host_sync", len(rec), site="selfplay.records")  # a copy a field
         rec = MoveRecord(*(field.cpu().numpy() for field in rec))
 
         completed = []
@@ -382,6 +403,7 @@ class SelfPlayDriver:
                 start = k + 1
             if start < K:
                 self._pending[g].append(self._slab(rec, g, start, K))
+        tracing.end(t, "selfplay.records")
         return completed, stats
 
     @staticmethod

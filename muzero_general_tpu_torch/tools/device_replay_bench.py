@@ -6,8 +6,8 @@ Runs connect4's shipped config twice for a bounded step budget, host replay
 the card, PER sampling, batch assembly, M train steps and the priority
 write-back in one round), both at bfloat16 with the prefetcher off, and
 reports the per-phase wall clock (muzero.py's `phase_time_s` records in
-metrics.jsonl, written every 20 loops as in JAX, so a run of fewer loops
-shows 0 there) and the total wall.
+metrics.jsonl, the totals of its `loop.*` spans, written every loop and
+once at the end) and the total wall.
 
 Usage (on the card; `--device cpu` runs it on the CPU):
     python -m muzero_general_tpu_torch.tools.device_replay_bench \\

@@ -16,8 +16,11 @@ and measures nothing of the card.
 under a header of the total device time, the launches per simulation or
 per step, and the card's busy share of an unprofiled call of the same
 function (timed by `timeit`: the profiler slows the host, so the share is
-taken against a call it did not watch). `--keep DIR` in the tools writes the
-Chrome trace of the profiled call there (`export_chrome_trace`).
+taken against a call it did not watch). The busy time is the union of the
+kernels' intervals, so kernels that overlap count once. `--keep DIR` in the
+tools writes the Chrome trace of the profiled call there
+(`export_chrome_trace`), with the program's spans of the call (tracing.py)
+on a row of their own.
 """
 
 import pathlib
@@ -25,6 +28,8 @@ import subprocess
 import time
 
 import torch
+
+from muzero_general_tpu_torch import tracing
 
 
 def card_line(device) -> str:
@@ -57,11 +62,32 @@ def timeit(fn, device, reps=1, warmup=0):
     return (time.perf_counter() - t0) / reps
 
 
+class DeviceRows(list):
+    """device_trace's rows, (device us, name, launches), with `busy_us`: the
+    union of the events' intervals, each moment some event ran counted
+    once."""
+
+    busy_us = None
+
+
+def union_ns(intervals):
+    """Nanoseconds covered by (start_ns, end_ns) intervals, overlaps once."""
+    total, reach = 0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total
+
+
 def device_trace(fn, device="cuda", keep=None, name="trace"):
     """fn() once under torch.profiler. Returns the kernels (on the CPU: the
-    operators) as (device us, name, launches) rows, the profiled wall ms,
-    and when the parse began. keep: a directory the Chrome trace is written
-    to, as <name>.json."""
+    operators) as DeviceRows, the profiled wall ms, and when the parse
+    began. keep: a directory the Chrome trace is written to, as
+    <name>.json."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -75,32 +101,39 @@ def device_trace(fn, device="cuda", keep=None, name="trace"):
         synchronize(device)
         wall = (time.perf_counter() - t0) * 1e3
     t_parse = time.perf_counter()
-    totals = {}
+    spans = tracing.take().spans
+    totals, intervals = {}, []
     for evt in prof.profiler.kineto_results.events():
         if evt.device_type() != kind:
             continue  # runtime calls on the host
         total = totals.setdefault(evt.name(), [0.0, 0])
         total[0] += evt.duration_ns() / 1e3
         total[1] += 1
+        intervals.append((evt.start_ns(), evt.start_ns() + evt.duration_ns()))
     if keep is not None:
         path = pathlib.Path(keep)
         path.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(path / f"{name}.json"))
-    return [(dev_us, key, count) for key, (dev_us, count) in totals.items()], wall, t_parse
+        tracing.add_to_chrome_trace(path / f"{name}.json", spans)
+    rows = DeviceRows((dev_us, key, count) for key, (dev_us, count) in totals.items())
+    rows.busy_us = union_ns(intervals) / 1e3
+    return rows, wall, t_parse
 
 
 def top_ops_table(rows, top, per=None, unit="simulation", unprofiled_ms=None, label="",
                   device="cuda", print_fn=print):
     """Print the top-`top` rows by total time in the JAX tools' columns
     under a summary header; return the summary: total_ms, launches,
-    launches_per_<unit>, busy_share (of `unprofiled_ms`; None where not
-    given or the trace holds no device time) and the top rows."""
+    launches_per_<unit>, busy_share (the union of the rows' device intervals,
+    DeviceRows.busy_us, over `unprofiled_ms`; None where either is not given
+    or the trace holds no device time) and the top rows."""
     where = "device" if torch.device(device).type == "cuda" else "cpu (host ops, nested)"
     total_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(r[2] for r in rows)
+    busy_us = getattr(rows, "busy_us", None)
     busy = None
-    if unprofiled_ms and total_ms > 0 and where == "device":
-        busy = total_ms / unprofiled_ms
+    if unprofiled_ms and busy_us and where == "device":
+        busy = busy_us / 1e3 / unprofiled_ms
     print_fn(f"# total {where} op time: {total_ms:.1f} ms{label}")
     line = f"# launches: {launches} ({len(rows)} names)"
     if per:

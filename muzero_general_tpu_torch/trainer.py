@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from muzero_general_tpu_torch import tracing
 from muzero_general_tpu_torch.device import resolve_device
 from muzero_general_tpu_torch.models import MuZeroNetwork
 from muzero_general_tpu_torch.models.common import BatchNorm, FullPrecision
@@ -235,8 +236,10 @@ class Learner:
         return self.scheduler.get_last_lr()[0]
 
     def _on_device(self, batch):
-        return {key: torch.as_tensor(value).to(self.device)
-                for key, value in batch.items()}
+        t = tracing.begin()
+        batch = {key: torch.as_tensor(value).to(self.device) for key, value in batch.items()}
+        tracing.end(t, "train.to_device")
+        return batch
 
     def full_state_dict(self):
         """The network's state dict with the mp-sharded layers' slices
@@ -266,17 +269,23 @@ class Learner:
 
     def _step(self, batch):
         lr = self.lr()
+        t = tracing.begin()
         loss, metrics, priorities = loss_fn(self.network, batch, self.config,
                                             self._recompute, self._global_batch(batch))
+        t = tracing.end(t, "train.forward")
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        t = tracing.end(t, "train.backward")
         if self.mesh is not None and self.mesh.dp_group is not None:
             metrics = self._reduce_over_dp(metrics)
+            t = tracing.end(t, "train.allreduce")
         self.optimizer.step()
+        t = tracing.end(t, "train.optimizer")
         self.scheduler.step()
         self.training_step += 1
         metrics["lr"] = lr  # the schedule before the update (JAX :215)
         self.metrics = metrics
+        tracing.end(t, "train.schedule")
         return metrics, priorities
 
     def train_step(self, batch):
