@@ -6,8 +6,8 @@
 In order, it:
 1. prints the card's name and power limit;
 2. builds every kernel (csrc/mcts_fused.cu, csrc/mcts_kernels.cu,
-   csrc/mcts_stream.cu, csrc/hidden_store.cu, csrc/conv_probe.cu and
-   csrc/stream_probe.cu) from the checkout, one nvcc each, started together,
+   csrc/mcts_stream.cu, csrc/hidden_store.cu, csrc/conv3x3.cu,
+   csrc/conv_probe.cu and csrc/stream_probe.cu) from the checkout, one nvcc each, started together,
    and prints the build times and ptxas' register/shared-memory report; then
    the replay batch assembler (native/replay_sampler.cpp) with g++;
 3. the cartpole path (FC net, the fused-search kernel):
@@ -66,6 +66,17 @@ In order, it:
       times the device work and profiles one move;
    g. the whole K = 8 search, kernel route vs plain versions, as in (c);
    h. 64 games against the expert as in (d), recorded, not a gate;
+   b and f also count the folded net's fused 3x3 conv (kernel 11,
+   csrc/conv3x3.cu) from zero: every conv that ops/conv3x3.py's routing
+   rule sends to the kernel launched it once;
+   i. kernel 11 against its plain version (conv3x3_plain: F.conv2d, bias,
+      skip, ReLU, float32 without TF32) on the same seeded inputs at
+      [1,024 | 2,048, 3 | 64 | 65 -> 64, 6, 7], with and without the skip:
+      every output within the float32-sum bound of their difference,
+      2 gamma_k sum |term| (k = 9 Cin + 2), and the kernel within
+      gamma_k sum |term| of a float64 conv; each timed as 20 chained calls
+      in one CUDA graph beside the plain version, with bound_ms from the
+      shape's FLOPs and bytes;
 6. the node-major descent (the counterpart of tools/resnet_profile.py
    section 4b) on the end-state tree of (c): kernel vs plain and vs the
    planar kernel on the same tree, bit-equal with tie jitter on; both
@@ -195,7 +206,9 @@ In order, it:
       lanes x 16 sims (m 16), 1 timed chunk of 8 moves; connect4's shipped
       net, 64 lanes x 200 sims, 1 timed chunk of GUMBEL_C4_CHUNK_MOVES
       (depth cuts); ms a move, env-steps/s, one move profiled for its
-      device launches per simulation, and no launch of the port's kernels;
+      device launches per simulation, and no launch of the port's search
+      kernels (the folded connect4 net's representation conv at 64 lanes
+      runs kernel 11, once a move, as ops/conv3x3.py's rule says);
    c. MuZero("cartpole", {"use_gumbel_mcts": True, "num_simulations": 16,
       "gumbel_max_considered_actions": 16, "training_steps":
       GUMBEL_TRAIN_STEPS}).train(), then test(num_tests=1) on the G = 1
@@ -1058,9 +1071,11 @@ def design_fields(name, numbers):
 
 def connect4_path():
     """Phases 4a-4d; returns the two kernels' entries of the kernels line,
-    the end state of 4c and the replay buffer of 4b."""
+    the end state of 4c, the replay buffer of 4b and 4b's launches of the
+    fused 3x3 conv."""
     from muzero_general_tpu_torch.games.connect4 import MuZeroConfig, make_env
     from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
+    from muzero_general_tpu_torch.ops import conv3x3 as conv_op
     from muzero_general_tpu_torch.ops import mcts_kernels
     from muzero_general_tpu_torch.selfplay import SelfPlayDriver
 
@@ -1079,6 +1094,7 @@ def connect4_path():
     K, reps, S = cfg.selfplay_chunk_moves, 3, cfg.num_simulations
     mcts_kernels.descend_planar.launches = 0
     mcts_kernels.backprop.launches = 0
+    conv_op.conv3x3.launches = 0
     games = []
     chunk_s, loop_ms, stats, _ = timed_play(driver, reps, games)
     launches = {"descend_planar": mcts_kernels.descend_planar.launches,
@@ -1088,6 +1104,7 @@ def connect4_path():
         if count != S * moves:
             fail(f"connect4 main path: {name} launched {count} times for {moves} moves "
                  f"x {S} sims")
+    conv_launches = check_conv3x3_launches("connect4 main path", cfg, driver.G, 1, moves)
     log(f"[connect4] SelfPlayDriver.play: {driver.G} lanes x {S} sims, {K} moves/chunk, "
         f"pretrained 3x64 ResNet: {chunk_s * 1e3:.2f} ms/chunk, "
         f"{stats['env_steps'] / chunk_s:.1f} env-steps/s, launches {launches} = "
@@ -1132,7 +1149,7 @@ def connect4_path():
             "bound_by": kernels[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call descends or backs up a tree
         })
-    return entries, end_state, c4_replay
+    return entries, end_state, c4_replay, conv_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1293,10 +1310,12 @@ def multileaf_snapshot_checks(cfg, folded, env):
 
 def connect4_multileaf_path():
     """Phases 4e-4h; returns the marking descent's and the pre-marked
-    backprop's entries of the kernels line."""
+    backprop's entries of the kernels line and 4f's launches of the fused
+    3x3 conv."""
     from muzero_general_tpu_torch.games.connect4 import MuZeroConfig, make_env
     from muzero_general_tpu_torch.models import MuZeroNetwork, fold_bn
     from muzero_general_tpu_torch.models.resnet import ResMuZero
+    from muzero_general_tpu_torch.ops import conv3x3 as conv_op
     from muzero_general_tpu_torch.ops import mcts_kernels
     from muzero_general_tpu_torch.selfplay import SelfPlayDriver
 
@@ -1327,6 +1346,7 @@ def connect4_multileaf_path():
     try:
         d, b = mcts_kernels.descend_planar, mcts_kernels.backprop
         d.launches = d.marked_launches = b.launches = b.pre_marked_launches = 0
+        conv_op.conv3x3.launches = 0
         chunk_s, loop_ms, stats, records = timed_play(driver, reps)
         launches = {"descend_planar_mark": d.marked_launches,
                     "backprop_pre_marked": b.pre_marked_launches,
@@ -1341,6 +1361,7 @@ def connect4_multileaf_path():
                  f"{moves} moves x {S} sims")
     if launches["descend_planar"] or launches["backprop"]:
         fail(f"connect4 K=8 main path: unmarked tree kernels launched: {launches}")
+    conv_launches = check_conv3x3_launches("connect4 K=8 main path", cfg, driver.G, L, moves)
     if len(inferences) != moves * S // L or set(inferences) != {L * driver.G}:
         fail(f"connect4 K=8 main path: {len(inferences)} recurrent inferences of batch "
              f"{sorted(set(inferences))} for {moves} moves x {S // L} rounds of {L * driver.G}")
@@ -1392,7 +1413,141 @@ def connect4_multileaf_path():
             "library_ms": None,  # no single PyTorch call descends or backs up a tree
         })
     entries[0]["quality_wins_of_64"] = wins  # recorded, not a gate
-    return entries
+    return entries, conv_launches
+
+
+# ---------------------------------------------------------------------------
+# Kernel 11: the folded ResNet's fused float32 3x3 conv
+# ---------------------------------------------------------------------------
+
+CONV3X3_DESIGN = ("implicit GEMM on the CUDA cores, float32 FMA: a thread 8 samples x 8 output "
+                  "channels at one position, a block 8 samples x all rows x 32 channels; "
+                  "activations staged sample-innermost with an in-kernel zero halo, weights "
+                  "and activations through a cp.async double buffer of 8-channel chunks, the "
+                  "skip tile by cp.async with the last chunk; bias, skip and ReLU in the "
+                  "epilogue; persistent grid")
+
+
+def conv3x3_launches_a_move(cfg, lanes, leaves=1):
+    """The fused 3x3 conv's launches in one move of a folded float32 ResNet
+    without a downsampler at `lanes` lanes and `leaves` leaves a round, as
+    ops/conv3x3.py's rule routes its convs: the initial inference's
+    representation conv and two towers of blocks (the representation's and
+    the prediction's), then each round's dynamics conv (the action plane
+    one more channel) and two towers (the dynamics' and the prediction's)."""
+    from muzero_general_tpu_torch.ops import conv3x3 as conv_op
+    from muzero_general_tpu_torch.tools.profiling import stacked_shape
+
+    f32 = torch.float32
+    c, (h, w) = cfg.channels, cfg.observation_shape[1:]
+
+    def takes(n, cin):
+        return int(conv_op.takes_kernel(f32, f32, f32, (3, 3), (1, 1), (1, 1), None,
+                                        (n, cin, c, h, w)))
+
+    tower = 2 * 2 * cfg.blocks  # two convs a block
+    initial = takes(lanes, stacked_shape(cfg)[0]) + tower * takes(lanes, c)
+    recurrent = takes(lanes * leaves, c + 1) + tower * takes(lanes * leaves, c)
+    return initial + cfg.num_simulations // leaves * recurrent
+
+
+def check_conv3x3_launches(label, cfg, lanes, leaves, moves):
+    """Fail unless the fused 3x3 conv, counted from zero before `moves`
+    moves, launched once for every conv the routing rule sends to it.
+    Returns the launches."""
+    from muzero_general_tpu_torch.ops import conv3x3 as conv_op
+
+    got, a_move = conv_op.conv3x3.launches, conv3x3_launches_a_move(cfg, lanes, leaves)
+    if got != a_move * moves:
+        fail(f"{label}: the fused 3x3 conv launched {got} times for {moves} moves, want "
+             f"{a_move} a move")
+    log(f"[{label}] the fused 3x3 conv: {got} launches = {a_move} a move x {moves} moves")
+    return got
+
+
+def conv3x3_phase(k8_launches, k1_launches):
+    """Phase 4i, kernel 11: the fused conv against conv3x3_plain on the same
+    seeded inputs at the connect4 cells' batches and channel counts, with
+    and without the skip. Both are float32 sums of k = 9 Cin + 2 terms in
+    different orders, each within gamma_k sum |term| of the exact value, so
+    they may differ by twice that, elementwise; the kernel is also held to
+    gamma_k sum |term| of a float64 conv. Each timed as 20 chained calls in
+    one CUDA graph; bound_ms from the shape's FLOPs and bytes (input,
+    weights, bias, skip, output). Returns the kernel's entry of the kernels
+    line, with 4f's launches (the K = 8 main path at 2,048 leaves) and
+    4b's."""
+    import torch.nn.functional as F
+
+    from muzero_general_tpu_torch.models.common import FullPrecision
+    from muzero_general_tpu_torch.ops import conv3x3 as conv_op
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(411)
+    u = 2.0 ** -24
+    cases = []
+    for n in (1024, 2048):
+        for cin in (3, 64, 65):
+            bound_w = (9 * cin) ** -0.5
+            x = torch.randn((n, cin, 6, 7), generator=gen, device=dev)
+            wt = (torch.rand((64, cin, 3, 3), generator=gen, device=dev) * 2 - 1) * bound_w
+            b = (torch.rand((64,), generator=gen, device=dev) * 2 - 1) * bound_w
+            packed = conv_op.pack_weight(wt)
+            terms0 = (F.conv2d(x.double().abs(), wt.double().abs(), None, 1, 1)
+                      + b.double().abs()[:, None, None])
+            exact0 = F.conv2d(x.double(), wt.double(), b.double(), 1, 1)
+            for with_skip in (False, True):
+                skip = torch.randn((n, 64, 6, 7), generator=gen, device=dev) if with_skip else None
+                terms = terms0 if skip is None else terms0 + skip.double().abs()
+                exact = torch.relu(exact0 if skip is None else exact0 + skip.double())
+                k = 9 * cin + 2
+                gamma = k * u / (1 - k * u)
+                with torch.no_grad(), FullPrecision():
+                    got = conv_op.conv3x3(x, wt, b, skip, packed)
+                    want = conv_op.conv3x3_plain(x, wt, b, skip)
+                    torch.cuda.synchronize()
+                    d_plain = (got.double() - want.double()).abs()
+                    d_exact = (got.double() - exact).abs()
+                    if not bool((d_plain <= 2 * gamma * terms).all()):
+                        fail(f"conv3x3 [{n}, {cin} -> 64, 6, 7] skip={with_skip}: kernel and "
+                             f"plain differ by {float(d_plain.max())!r}, beyond the float32 "
+                             f"sums' bound")
+                    if not bool((d_exact <= gamma * terms).all()):
+                        fail(f"conv3x3 [{n}, {cin} -> 64, 6, 7] skip={with_skip}: the kernel "
+                             f"is {float(d_exact.max())!r} off a float64 conv, beyond gamma_k "
+                             f"sum |term|")
+                    ms = graph_ms(lambda: conv_op.conv3x3(x, wt, b, skip, packed), 20)
+                    plain_ms = graph_ms(lambda: conv_op.conv3x3_plain(x, wt, b, skip), 20)
+                flops = 2 * n * 6 * 7 * 9 * cin * 64
+                nbytes = 4 * (x.numel() + wt.numel() + b.numel() + n * 64 * 42
+                              * (2 if with_skip else 1))
+                bnd, by = bound_ms(flops, nbytes)
+                row = {"shape": [n, cin, 64, 6, 7], "skip": with_skip,
+                       "max_abs_err": float(d_plain.max()),
+                       "max_abs_err_f64": float(d_exact.max()), "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bnd, "bound_by": by}
+                cases.append(row)
+                log(f"[conv3x3] [{n}, {cin} -> 64, 6, 7] skip={with_skip}: kernel vs plain max "
+                    f"|d| {row['max_abs_err']!r}, vs float64 {row['max_abs_err_f64']!r} (within "
+                    f"the float32 sums' bound); {ms:.4f} ms a conv (CUDA graph of 20), plain "
+                    f"{plain_ms:.4f} ms; bound {bnd:.4f} ms ({by}), the kernel at "
+                    f"{100 * bnd / ms:.1f}% of it, plain at {100 * bnd / plain_ms:.1f}%")
+    main = next(c for c in cases if c["shape"] == [2048, 64, 64, 6, 7] and c["skip"])
+    return {
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": CSRC + "conv3x3.cu",
+        "replaces": None,  # the JAX package leaves its convolutions to XLA
+        "design": CONV3X3_DESIGN,
+        "launches": k8_launches,  # 4f, the K = 8 main path
+        "connect4_k1_selfplay_launches": k1_launches,  # 4b, at 256 lanes
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main["ms"],  # [2,048, 64 -> 64, 6, 7] with the skip, a tower's second conv
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["plain_ms"],  # the plain version is the library's conv (cuDNN)
+        "cases": cases,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -3215,9 +3370,13 @@ def gumbel_card_vs_cpu(label, card_fns, cpu_fns, obs, legal, to_play, spec, gumb
 
 def gumbel_selfplay(label, module, cfg, net, reps):
     """One chunk and `reps` timed ones of the Gumbel driver (timed_play),
-    then one move profiled for its device launches; fail if any of the
-    port's kernels launched."""
+    then one move profiled for its device launches; fail unless the port's
+    kernels launched as expected: none of the search's (the Gumbel search
+    has none, as in JAX) and, for a folded ResNet, the fused 3x3 conv
+    wherever ops/conv3x3.py's rule sends a conv (one launch a move for
+    connect4's representation conv at 64 lanes)."""
     from muzero_general_tpu_torch.selfplay import SelfPlayDriver
+    from muzero_general_tpu_torch.tools.profiling import launches_since
 
     env = module.make_env()
     driver = SelfPlayDriver(env, net, cfg, seed=0)
@@ -3225,8 +3384,12 @@ def gumbel_selfplay(label, module, cfg, net, reps):
         fail(f"{label}: route {driver.search_route}, Gumbel {driver.use_gumbel}")
     before = kernel_counts()
     chunk_s, loop_ms, stats, records = timed_play(driver, reps)
-    if kernel_counts() != before:
-        fail(f"{label}: the Gumbel route launched the port's kernels: {kernel_counts()}")
+    moves = (reps + 1) * cfg.selfplay_chunk_moves
+    conv = conv3x3_launches_a_move(cfg, driver.G) * moves if driver.fold_bn else 0
+    want = {"conv3x3": conv} if conv else {}
+    launched = launches_since(before)
+    if launched != want:
+        fail(f"{label}: the Gumbel route launched the port's kernels {launched}, want {want}")
     for rec in records:
         pol = rec.child_visits
         if bool(((pol.sum(-1) - 1).abs() > 1e-5).any()):
@@ -3243,8 +3406,8 @@ def gumbel_selfplay(label, module, cfg, net, reps):
         f"{chunk_s * 1e3:.2f} ms/chunk, {stats['env_steps'] / chunk_s:.1f} env-steps/s, "
         f"{move_ms:.3f} ms/move (move loop {loop_ms:.3f}); one move profiled: {launches} "
         f"device launches ({launches / S:.1f} per simulation), {busy}; {wall_ms:.1f} ms "
-        f"wall profiled; the port's kernels: no launch (as in JAX); max tree depth "
-        f"{stats['max_tree_depth']}")
+        f"wall profiled; the port's kernels: {launched or 'no launch'} over {moves} moves "
+        f"(no search kernel, as in JAX); max tree depth {stats['max_tree_depth']}")
     return driver
 
 
@@ -4471,11 +4634,14 @@ def main():
     cart_replay, fused_entry = cartpole_path()
     kernels = [fused_entry]
     log(f"[done] cartpole path after {time.perf_counter() - t_start:.1f} s")
-    entries, end_state, c4_replay = connect4_path()
+    entries, end_state, c4_replay, k1_conv_launches = connect4_path()
     kernels += entries
     log(f"[done] connect4 path after {time.perf_counter() - t_start:.1f} s")
-    kernels += connect4_multileaf_path()
+    entries, k8_conv_launches = connect4_multileaf_path()
+    kernels += entries
     log(f"[done] connect4 K=8 path after {time.perf_counter() - t_start:.1f} s")
+    kernels.append(conv3x3_phase(k8_conv_launches, k1_conv_launches))
+    log(f"[done] kernel 11 after {time.perf_counter() - t_start:.1f} s")
     kernels.append(node_major_descend_phase(*end_state))
     kernels.append(row_write_phase())
     log(f"[done] kernels 6 and 7 after {time.perf_counter() - t_start:.1f} s")

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from muzero_general_tpu_torch import tracing
+from muzero_general_tpu_torch.ops import conv3x3 as conv3x3_op
 from muzero_general_tpu_torch.parallel.collectives import group_gather, mp_input, mp_output
 
 
@@ -125,9 +127,11 @@ class Conv(nn.Conv2d):
     is symmetric, `padding` cells a side (default SAME at stride 1).
     `mp_group`: the column-parallel layer's group (see the module
     docstring, which says why the channels are gathered right after the
-    conv)."""
+    conv). `packed_weight`: the weight in ops/conv3x3.py's layout, kept by
+    `pack` (models/network.py fold_bn) for the fused 3x3 kernel."""
 
     mp_group = None
+    packed_weight = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  bias: bool, dtype: torch.dtype = torch.float32,
@@ -151,6 +155,40 @@ class Conv(nn.Conv2d):
                                self.weight.to(self.compute_dtype), None)
         y = y.to(self.out_dtype)
         return y if self.bias is None else y + self.bias.to(self.out_dtype)[:, None, None]
+
+    def pack(self):
+        """Keep the weight packed for the fused 3x3 kernel if the routing
+        rule could send this conv there (models/network.py fold_bn, once a
+        fold; the twin's weights do not change after it)."""
+        if conv3x3_op.takes_kernel(torch.float32, self.compute_dtype, self.out_dtype,
+                                   self.kernel_size, self.stride, self.padding, self.mp_group,
+                                   None):
+            self.packed_weight = conv3x3_op.pack_weight(self.weight)
+            self._routes = {}  # (input dtype, input shape) -> takes_kernel, per call
+
+    def conv_relu(self, x, skip=None):
+        """A folded twin's conv and ReLU, relu(self(x) [+ skip]): the fused
+        kernel (ops/conv3x3.py; its plain version on the CPU) where the
+        weight is packed and the routing rule takes the input's dtype and
+        shape, else PyTorch's conv, then the skip add and ReLU. Counted by
+        tracing as `conv3x3` at site "kernel", "plain" or "library"."""
+        takes = False
+        if self.packed_weight is not None:
+            key = (x.dtype, x.shape)
+            takes = self._routes.get(key)
+            if takes is None:
+                n, _, h, w = x.shape
+                takes = self._routes[key] = conv3x3_op.takes_kernel(
+                    x.dtype, self.compute_dtype, self.out_dtype, self.kernel_size, self.stride,
+                    self.padding, self.mp_group, (n, self.in_channels, self.out_channels, h, w))
+        if takes:
+            tracing.count("conv3x3", site="kernel" if x.is_cuda else "plain")
+            return conv3x3_op.conv3x3(x.contiguous(), self.weight, self.bias,
+                                      None if skip is None else skip.contiguous(),
+                                      self.packed_weight)
+        tracing.count("conv3x3", site="library")
+        y = self(x)
+        return F.relu(y if skip is None else y + skip)
 
 
 def conv(in_channels: int, out_channels: int, kernel_size: int, bias: bool,
@@ -281,8 +319,8 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         if self.fold_bn:
-            out = F.relu(self.TorchConv_0(x))
-            return F.relu(self.TorchConv_1(out) + x.to(self.act_dtype))
+            out = self.TorchConv_0.conv_relu(x)
+            return self.TorchConv_1.conv_relu(out, x.to(self.act_dtype))
         out = F.relu(self.BatchNorm_0(self.TorchConv_0(x)))
         out = self.BatchNorm_1(self.TorchConv_1(out))
         return F.relu(out + x)

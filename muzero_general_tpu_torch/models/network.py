@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from muzero_general_tpu_torch.device import resolve_device
-from muzero_general_tpu_torch.models.common import reset_parameters
+from muzero_general_tpu_torch.models.common import Conv, reset_parameters
 from muzero_general_tpu_torch.models.fc import FCMuZero
 from muzero_general_tpu_torch.models.resnet import ResMuZero
 
@@ -104,7 +104,9 @@ def fold_bn(network: ResMuZero, act_dtype: torch.dtype = torch.float32) -> ResMu
     fold_bn=True module on the same device, at the network's compute dtype
     with activations in `act_dtype` (activation_dtype(config)); at float32
     activations its outputs equal the network's up to float reassociation,
-    with no normalization pass.
+    with no normalization pass. Each float32 3x3 conv also keeps its weight
+    packed for the fused kernel (models/common.py Conv.pack), here and not
+    per call.
     """
     modules = dict(network.named_modules())
     state = {}
@@ -128,6 +130,9 @@ def fold_bn(network: ResMuZero, act_dtype: torch.dtype = torch.float32) -> ResMu
             state[f"{name}.bias"] = bias
     folded = network.folded_twin(act_dtype)
     folded.load_state_dict(state)
+    for module in folded.modules():
+        if isinstance(module, Conv):
+            module.pack()  # the fused 3x3 kernel's weight layout (ops/conv3x3.py)
     return folded
 
 

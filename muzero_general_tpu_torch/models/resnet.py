@@ -166,11 +166,10 @@ class RepresentationResnet(nn.Module):
             x = self.DownSampleResnet_0(x)
         elif self.downsample == "CNN":
             x = self.DownsampleCNN_0(x)
+        elif self.fold_bn:
+            x = self.TorchConv_0.conv_relu(x)
         else:
-            x = self.TorchConv_0(x)
-            if not self.fold_bn:
-                x = self.BatchNorm_0(x)
-            x = F.relu(x)
+            x = F.relu(self.BatchNorm_0(self.TorchConv_0(x)))
         for i in range(self.num_blocks):
             x = getattr(self, f"ResidualBlock_{i}")(x)
         return x
@@ -197,10 +196,10 @@ class DynamicsResnet(nn.Module):
         self.MLP_0 = MLP(block_output_size_reward, fc_reward_layers, full_support_size, dtype)
 
     def forward(self, x):
-        x = self.TorchConv_0(x)
-        if not self.fold_bn:
-            x = self.BatchNorm_0(x)
-        x = F.relu(x)
+        if self.fold_bn:
+            x = self.TorchConv_0.conv_relu(x)
+        else:
+            x = F.relu(self.BatchNorm_0(self.TorchConv_0(x)))
         for i in range(self.num_blocks):
             x = getattr(self, f"ResidualBlock_{i}")(x)
         reward = self.MLP_0(_flatten_hwc(self.TorchConv_1(x)))

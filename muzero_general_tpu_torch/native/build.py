@@ -125,6 +125,18 @@ _KERNELS = {
             "conv_probe_error_string": (ctypes.c_char_p, [ctypes.c_int]),
         },
     },
+    "conv3x3": {
+        # The folded ResNet's float32 3x3 conv, held to a tolerance against
+        # float64 (its sums in another order than cuDNN's): FMA contraction
+        # stays on (the kernel's products are explicit fmaf anyway).
+        "flags": [],
+        "api": {
+            "conv3x3_forward": (
+                ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            ),
+            "conv3x3_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        },
+    },
     "stream_probe": {
         # The stream probe's pointer chase (sums only, held to a tolerance)
         # and its latency floor (row indices, exact; launched only by

@@ -155,7 +155,8 @@ def top_ops_table(rows, top, per=None, unit="simulation", unprofiled_ms=None, la
 def launch_counts():
     """Every kernel wrapper's launch count (each counts where it launches
     its kernel, on the card only)."""
-    from muzero_general_tpu_torch.ops import hidden_store, mcts_fused, mcts_kernels, mcts_stream
+    from muzero_general_tpu_torch.ops import (conv3x3, hidden_store, mcts_fused, mcts_kernels,
+                                              mcts_stream)
 
     return {"mcts_fused_search": mcts_fused.search.launches,
             "descend_planar": mcts_kernels.descend_planar.launches,
@@ -163,7 +164,8 @@ def launch_counts():
             "backprop": mcts_kernels.backprop.launches,
             "descend_stream": mcts_stream.descend_stream.launches,
             "update_edges": mcts_stream.update_edges.launches,
-            "write_node_hidden": hidden_store.write_node_hidden.launches}
+            "write_node_hidden": hidden_store.write_node_hidden.launches,
+            "conv3x3": conv3x3.conv3x3.launches}
 
 
 def launches_since(before):

@@ -159,11 +159,14 @@ def take() -> Taken:
 
 
 def counters():
-    """The running totals of every counter: the kernel wrappers' launches
-    (tools/profiling.py launch_counts) and the tracer's counters."""
+    """The running totals of every counter: the tracer's counters and the
+    kernel wrappers' launches (tools/profiling.py launch_counts). A kernel's
+    launches keep its name where a counter shares it: `conv3x3` is the
+    fused conv's launches, the tracer's `conv3x3` calls are by site under
+    `conv3x3:<site>`."""
     from muzero_general_tpu_torch.tools.profiling import launch_counts
 
-    return {**launch_counts(), **_totals}
+    return {**_totals, **launch_counts()}
 
 
 class Phases:

@@ -191,6 +191,8 @@ def test_host_sync_count_of_a_chunk_matches_its_sites(kernels, monkeypatch):
     tracing.disable()
     sites = {}
     for _, name, n, site in tracing.take().events:
+        if name == "conv3x3":  # the folded twin's 3x3 convs, counted by route
+            continue
         assert name == "host_sync"
         sites[site] = sites.get(site, 0) + n
     want = {"selfplay.records": len(MoveRecord._fields), "selfplay.fold": fold,
